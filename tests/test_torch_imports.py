@@ -1,0 +1,125 @@
+"""The port stands alone: importing ``repro_torch`` and every module of
+it loads neither ``jax`` nor ``repro``; its sources never name them;
+and ``device=None`` means the CUDA device or an error, never a quiet
+landing on the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+SLICE_MODULES = [
+    "repro_torch", "repro_torch.sparse.csr", "repro_torch.sparse.partition",
+    "repro_torch.sparse.synthetic", "repro_torch.sparse.ell", "repro_torch.core.objective",
+    "repro_torch.core.problem", "repro_torch.core.teams", "repro_torch.core.comm",
+    "repro_torch.core.engine", "repro_torch.core.sgd", "repro_torch.core.sstep",
+    "repro_torch.core.fedavg", "repro_torch.core.hybrid", "repro_torch.kernels.ref",
+    "repro_torch.kernels.ell_gram", "repro_torch.kernels.sstep_inner",
+    "repro_torch.kernels._build",
+]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = [m for m in ("jax", "jaxlib", "repro", "triton") if m in sys.modules]
+print("MODULES", " ".join(sorted(names)))
+print("LOADED", " ".join(loaded))
+"""
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+    )
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.split(" ", 1) if " " in line else (line, "") for line in out.stdout.splitlines())
+    assert lines["LOADED"] == ""
+    imported = set(lines["MODULES"].split())
+    assert set(SLICE_MODULES) <= imported
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize(
+    "pattern",
+    [r"^\s*(import|from)\s+jax\b", r"^\s*(import|from)\s+repro(\.|\s)", r"torch\.compile",
+     r"scaled_dot_product_attention", r"torch/extension\.h"],
+    ids=["import-jax", "import-repro", "torch-compile", "sdpa", "torch-extension-header"],
+)
+def test_port_sources_never_name(pattern):
+    rx = re.compile(pattern, re.MULTILINE)
+    sources = _port_sources()
+    assert len(sources) > 20 and all(p.exists() for p in sources)
+    hits = [str(p.relative_to(ROOT)) for p in sources if rx.search(p.read_text())]
+    assert hits == []
+
+
+def test_every_kernel_has_source_plain_version_and_counter():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
+
+    for name in _build.KERNEL_SOURCES:
+        text = _build.source_path(name).read_text()
+        assert "Replaces: src/repro/kernels/" in text and 'extern "C"' in text
+        assert _build.library_path(name).parent == _build.build_dir()
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert isinstance(ell_gram_and_v.launches, int) and isinstance(sstep_inner.launches, int)
+    assert callable(ell_gram_and_v_blocked) and callable(sstep_inner_ref)
+    # the build directory is git-ignored
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "build/" in ignored
+
+
+def test_device_none_means_cuda_or_an_error():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is allowed to succeed")
+    from repro_torch import resolve_device
+    from repro_torch.core.problem import make_problem, problem_from_numpy
+    from repro_torch.core.teams import stack_row_teams, team_problem_from_numpy
+    from repro_torch.sparse.ell import ell_from_csr
+    from repro_torch.sparse.synthetic import make_skewed_csr
+
+    a = make_skewed_csr(16, 20, 3, 0.0, seed=0)
+    y = np.ones(16)
+    idx, val, valid = np.zeros((1, 8, 2), np.int32), np.zeros((1, 8, 2)), np.ones((1, 8), bool)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: ell_from_csr(a),
+        lambda: make_problem(a, y),
+        lambda: stack_row_teams(a, y, 2),
+        lambda: team_problem_from_numpy(idx, val, valid, p=1, m=8, n=4),
+        lambda: problem_from_numpy(idx[0], val[0], valid[0], m=8, n=4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert ell_from_csr(a, device="cpu").values.device.type == "cpu"
+
+
+def test_kernels_cannot_be_built_without_nvcc_and_say_so():
+    """No compiler here: asking for a kernel library raises with the
+    reason; nothing falls back."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    if shutil.which("nvcc") or pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is present")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
