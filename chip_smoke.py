@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-against its plain PyTorch version on the GPU, drives the port's main path
-(the simulated HybridSGD engine) on the full-size synthetic ``rcv1``
-dataset through the entry points a user calls, checks that the path went
-through both kernels, times them, and prints
+mode of each (fp32 and bf16) against its plain PyTorch version on the GPU,
+drives the port's paths (the simulated HybridSGD engine: synchronous fp32,
+then delay D = 2 in bf16 and in fp32) on the full-size synthetic ``rcv1``
+dataset through the entry points a user calls, checks that each path went
+through its kernels, reads the comm ledger, times the kernels, and prints
 
   * the GPU's name and power limit,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
@@ -15,8 +16,9 @@ through both kernels, times them, and prints
     bound and library yardstick,
   * as the last line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --profile`` also traces one more run of the main
-path with ``torch.profiler`` and prints the device time by kernel.
+``python3 chip_smoke.py --profile`` also traces one more run of the
+synchronous fp32 path and of the D = 2 bf16 path with ``torch.profiler`` and
+prints the device time by kernel.
 
 Any failed phase ends the process with a non-zero exit code; there is no
 CPU mode: without a CUDA device the script fails at once.
@@ -24,6 +26,7 @@ CPU mode: without a CUDA device the script fails at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -42,6 +45,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # stated against these, with the card's power limit printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 
 GV_TOL = 1e-3  # rtol = atol for (G, v): float32 sums taken in another order
 U_TOL = 1e-5  # rtol = atol for u: expf vs exp and the order of short dots
@@ -52,6 +56,15 @@ U_TOL = 1e-5  # rtol = atol for u: expf vs exp and the order of short dots
 # and requires the gaps to land outside them.
 X_TOL = 5e-6
 IDENTITY_TOL = 1e-6  # max |Δx|, s-step against mini-batch SGD
+# bf16 mode against its plain version where a row repeats a column id: the
+# kernel rounds each entry to bf16, the plain version (as the reference) the
+# per-column sum — up to one bf16 rounding (2⁻⁸ relative) of a G entry.
+BF16_DUP_TOL = 2e-2
+# bf16 against fp32 (the reference's documented limits): the rounding is live
+# and small — (G, v) relative deviation in (0, BF16_REL), u in (0, BF16_DU),
+# the final x of the D = 2 run within BF16_DX of the fp32 run at D = 2.
+BF16_REL, BF16_DU, BF16_DX = 2e-2, 1e-2, 1e-3
+DELAY = 2
 
 # the main path: full-size rcv1 (m = 20,242, n = 47,236, z̄ = 74), 4 row teams
 DATASET = "rcv1"
@@ -110,9 +123,9 @@ def device_ms(fn, *, inner: int, reps: int = 20) -> float:
     return _median_ms(graph.replay, inner, reps)
 
 
-def profile_main_path(run, rounds: int) -> None:
-    """``--profile``: trace one more run of the main path and print where
-    the device time went, by kernel name, and the device's busy share."""
+def profile_main_path(label: str, run, rounds: int) -> None:
+    """``--profile``: trace one more run of a path and print where the
+    device time went, by kernel name, and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -134,7 +147,7 @@ def profile_main_path(run, rounds: int) -> None:
     busy_us = sum(r[0] for r in device_rows)
     host_us = sum(r[0] for r in host_rows)
     check(busy_us > 0, "the profiler recorded no device time")
-    log(f"[profile] {rounds} rounds under the profiler: wall {wall_us / rounds / 1e3:.3f} ms a round, device busy "
+    log(f"[profile] {label} path, {rounds} rounds under the profiler: wall {wall_us / rounds / 1e3:.3f} ms a round, device busy "
         f"{busy_us / rounds / 1e3:.3f} ms a round = {busy_us / wall_us:.1%} of the wall time (idle {1 - busy_us / wall_us:.1%}); "
         f"host time inside traced operators {host_us / rounds / 1e3:.3f} ms a round")
     for self_us, count, key in sorted(device_rows, reverse=True)[:10]:
@@ -162,17 +175,27 @@ def matching_pairs(idx: torch.Tensor, val: torch.Tensor, n: int) -> float:
     return float(((per_col ** 2).sum() - (per_cell ** 2).sum()) / 2)
 
 
-def random_bundle(sb: int, w: int, n: int, seed: int, device):
+def random_bundle(sb: int, w: int, n: int, seed: int, device, unique: bool = False):
+    """Random ELL rows: with a repeated column id in every row, or (unique)
+    with distinct ids a row, as every registered dataset has."""
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, n, size=(sb, w)).astype(np.int32)
-    if w >= 2:  # duplicate ids inside a row, always
-        idx[:, 1] = idx[:, 0]
+    if unique:
+        idx = np.stack([rng.choice(n, size=w, replace=False) for _ in range(sb)]).astype(np.int32)
+    else:
+        idx = rng.integers(0, n, size=(sb, w)).astype(np.int32)
+        if w >= 2:  # duplicate ids inside a row, always
+            idx[:, 1] = idx[:, 0]
     val = rng.standard_normal((sb, w)).astype(np.float32) / math.sqrt(w)
     val[:, w - (w // 4):] = 0.0  # a padded tail, as ELL rows have
     idx[:, w - (w // 4):] = 0
     x = rng.standard_normal(n).astype(np.float32)
     return (torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device),
             torch.from_numpy(x).to(device))
+
+
+def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got − ref| over max |ref|."""
+    return float((got - ref).abs().max() / ref.abs().max())
 
 
 def main() -> None:
@@ -189,7 +212,10 @@ def main() -> None:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.core import engine
-    from repro_torch.core.engine import ParallelSGDSchedule, run_engine_chunk, run_parallel_sgd
+    from repro_torch.core.comm import time_phase
+    from repro_torch.core.engine import (
+        ParallelSGDSchedule, engine_comm_ledger, engine_phase_probes, run_engine_chunk, run_parallel_sgd,
+    )
     from repro_torch.core.teams import stack_row_teams
     from repro_torch.kernels import _build
     from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
@@ -211,11 +237,22 @@ def main() -> None:
         f"on {tp.values.device} ({time.perf_counter() - t0:.1f} s to generate and stack)")
     check(tp.values.is_cuda and tp.values.dtype == torch.float32, "the problem is not float32 on the card")
 
+    def zero_counts() -> None:
+        ell_gram_and_v.launches.update(fp32=0, bf16=0)
+        sstep_inner.launches.update(fp32=0, bf16=0)
+
+    def counts() -> dict:
+        return {f"{name}.{mode}": fn.launches[mode]
+                for name, fn in (("ell_gram", ell_gram_and_v), ("sstep_inner", sstep_inner))
+                for mode in ("fp32", "bf16")}
+
     # ---- phase 3: each kernel against its plain version, on the card ----
-    gram_err = 0.0
-    for case, (sb, w, n) in enumerate(
-        [(8, 1, 10), (64, 24, 1999), (128, 111, 47236), (512, 111, 47236), (128, 540, 1355191)]
-    ):
+    # worst max abs error against the plain version, by (kernel, mode); the
+    # bf16 Gram on rows with repeated ids is kept apart (its own tolerance)
+    err = {"ell_gram.fp32": 0.0, "ell_gram.bf16": 0.0, "sstep_inner.fp32": 0.0, "sstep_inner.bf16": 0.0}
+    gram16_dup_err = 0.0
+    grid = [(8, 1, 10), (64, 24, 1999), (128, 111, 47236), (512, 111, 47236), (128, 540, 1355191)]
+    for case, (sb, w, n) in enumerate(grid):
         idx, val, x = random_bundle(sb, w, n, 100 + case, device)
         g, v = ell_gram_and_v(idx, val, x, n=n)
         sync()
@@ -228,10 +265,36 @@ def main() -> None:
             max_abs, max_rel, ok = errors(got, want, GV_TOL)
             check(ok and math.isfinite(max_abs), f"ell_gram {name} at {(sb, w, n)}: max abs {max_abs}, max rel {max_rel}")
             worst = max(worst, max_abs)
-        gram_err = max(gram_err, worst)
+        err["ell_gram.fp32"] = max(err["ell_gram.fp32"], worst)
         log(f"[kernels] ell_gram    (sb, w, n) = {(sb, w, n)}: max abs err {worst:.3g} (tol {GV_TOL})")
 
-    inner_err = 0.0
+        # bf16 mode, rows with a repeated id: within BF16_DUP_TOL of its plain
+        # version and of fp32
+        g16, v16 = ell_gram_and_v(idx, val, x, n=n, precision="bf16")
+        sync()
+        check(bool(torch.all(torch.triu(g16) == 0)), f"ell_gram bf16: triu(G) != 0 at {(sb, w, n)}")
+        pg16, pv16 = ell_gram_and_v_blocked(idx, val, x, n=n, bk=512, precision="bf16")
+        dup = 0.0
+        for got, want, name in ((g16, pg16, "G~plain"), (v16, pv16, "v~plain"), (g16, g, "G~fp32"), (v16, v, "v~fp32")):
+            max_abs, max_rel, ok = errors(got, want, BF16_DUP_TOL)
+            check(ok and math.isfinite(max_abs), f"ell_gram bf16 {name} at {(sb, w, n)}, repeated ids: max abs {max_abs}")
+            if "plain" in name:
+                dup = max(dup, max_abs)
+        gram16_dup_err = max(gram16_dup_err, dup)
+        # bf16 mode, distinct ids a row: only the order of float32 sums differs
+        idx, val, x = random_bundle(sb, w, n, 150 + case, device, unique=True)
+        g16, v16 = ell_gram_and_v(idx, val, x, n=n, precision="bf16")
+        pg16, pv16 = ell_gram_and_v_blocked(idx, val, x, n=n, bk=512, precision="bf16")
+        sync()
+        worst16 = 0.0
+        for got, want, name in ((g16, pg16, "G"), (v16, pv16, "v")):
+            max_abs, max_rel, ok = errors(got, want, GV_TOL)
+            check(ok and math.isfinite(max_abs), f"ell_gram bf16 {name} at {(sb, w, n)}, distinct ids: max abs {max_abs}")
+            worst16 = max(worst16, max_abs)
+        err["ell_gram.bf16"] = max(err["ell_gram.bf16"], worst16)
+        log(f"[kernels] ell_gram    bf16 (sb, w, n) = {(sb, w, n)}: max abs err {worst16:.3g} on distinct ids (tol {GV_TOL}), "
+            f"{dup:.3g} on repeated ids (tol {BF16_DUP_TOL})")
+
     for case, (s, b) in enumerate([(1, 8), (4, 32), (8, 16), (16, 32)]):
         for eta in (0.05, 1.0):
             rng = np.random.default_rng(200 + case)
@@ -239,31 +302,49 @@ def main() -> None:
             y = rng.standard_normal((sb, 200)).astype(np.float32) / math.sqrt(200)
             g = torch.from_numpy(np.tril(y @ y.T, -1).astype(np.float32)).to(device)
             v = torch.from_numpy(rng.standard_normal(sb).astype(np.float32)).to(device)
-            u = sstep_inner(g, v, s, b, eta)
-            sync()
-            max_abs, max_rel, ok = errors(u, sstep_inner_ref(g, v, s, b, eta), U_TOL)
-            check(ok and math.isfinite(max_abs), f"sstep_inner at (s, b, eta) = {(s, b, eta)}: max abs {max_abs}, max rel {max_rel}")
-            inner_err = max(inner_err, max_abs)
-            log(f"[kernels] sstep_inner (s, b, eta) = {(s, b, eta)}: max abs err {max_abs:.3g} (tol {U_TOL})")
+            for mode in ("fp32", "bf16"):
+                u = sstep_inner(g, v, s, b, eta, precision=mode)
+                sync()
+                max_abs, max_rel, ok = errors(u, sstep_inner_ref(g, v, s, b, eta, precision=mode), U_TOL)
+                check(ok and math.isfinite(max_abs),
+                      f"sstep_inner {mode} at (s, b, eta) = {(s, b, eta)}: max abs {max_abs}, max rel {max_rel}")
+                err[f"sstep_inner.{mode}"] = max(err[f"sstep_inner.{mode}"], max_abs)
+                log(f"[kernels] sstep_inner {mode} (s, b, eta) = {(s, b, eta)}: max abs err {max_abs:.3g} (tol {U_TOL})")
 
     # both kernels on the bundles the main path feeds them: real rows of the
     # dataset (sorted ids, a ragged padded tail) and a nonzero iterate
     x_real = torch.from_numpy(np.random.default_rng(300).standard_normal(tp.n).astype(np.float32) * 0.1).to(device)
     for team, r0 in ((0, 0), (P_R - 1, tp.rows_local - S * B)):
         idx, val = tp.indices[team, r0 : r0 + S * B], tp.values[team, r0 : r0 + S * B]
-        g, v = ell_gram_and_v(idx, val, x_real, n=tp.n)
-        check(bool(torch.all(torch.triu(g) == 0)), f"ell_gram: triu(G) != 0 on {DATASET} rows")
-        pg, pv = ell_gram_and_v_blocked(idx, val, x_real, n=tp.n, bk=512)
-        check(float(pg.abs().max()) > 0, f"the {DATASET} bundle has an empty Gram matrix")
-        for got, want, name in ((g, pg, "G"), (v, pv, "v")):
-            max_abs, max_rel, ok = errors(got, want, GV_TOL)
-            check(ok and math.isfinite(max_abs), f"ell_gram {name} on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
-            gram_err = max(gram_err, max_abs)
-        max_abs, max_rel, ok = errors(sstep_inner(pg, pv, S, B, ETA), sstep_inner_ref(pg, pv, S, B, ETA), U_TOL)
-        check(ok and math.isfinite(max_abs), f"sstep_inner on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
-        inner_err = max(inner_err, max_abs)
-    log(f"[kernels] both kernels on {DATASET} bundles (team 0 first rows, team {P_R - 1} last rows): "
-        f"worst so far ell_gram {gram_err:.3g}, sstep_inner {inner_err:.3g}")
+        out = {}
+        for mode in ("fp32", "bf16"):
+            g, v = ell_gram_and_v(idx, val, x_real, n=tp.n, precision=mode)
+            check(bool(torch.all(torch.triu(g) == 0)), f"ell_gram {mode}: triu(G) != 0 on {DATASET} rows")
+            pg, pv = ell_gram_and_v_blocked(idx, val, x_real, n=tp.n, bk=512, precision=mode)
+            check(float(pg.abs().max()) > 0, f"the {DATASET} bundle has an empty Gram matrix")
+            for got, want, name in ((g, pg, "G"), (v, pv, "v")):
+                max_abs, max_rel, ok = errors(got, want, GV_TOL)
+                check(ok and math.isfinite(max_abs),
+                      f"ell_gram {mode} {name} on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
+                err[f"ell_gram.{mode}"] = max(err[f"ell_gram.{mode}"], max_abs)
+            u = sstep_inner(pg, pv, S, B, ETA, precision=mode)
+            max_abs, max_rel, ok = errors(u, sstep_inner_ref(pg, pv, S, B, ETA, precision=mode), U_TOL)
+            check(ok and math.isfinite(max_abs), f"sstep_inner {mode} on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
+            err[f"sstep_inner.{mode}"] = max(err[f"sstep_inner.{mode}"], max_abs)
+            out[mode] = (g, v, pg, pv)
+        # the bf16 rounding is live, and small: each mode against fp32 on the
+        # same inputs (the corrections on the fp32 (G, v))
+        g32, v32, pg32, pv32 = out["fp32"]
+        g16, v16 = out["bf16"][:2]
+        dev_g, dev_v = rel_dev(g16, g32), rel_dev(v16, v32)
+        du = float((sstep_inner(pg32, pv32, S, B, ETA, precision="bf16") - sstep_inner(pg32, pv32, S, B, ETA)).abs().max())
+        sync()
+        log(f"[kernels] bf16 against fp32 on {DATASET} rows of team {team}: (G, v) relative {dev_g:.3g}, {dev_v:.3g} "
+            f"(limit {BF16_REL}), u max |Δ| {du:.3g} (limit {BF16_DU})")
+        check(0.0 < dev_g < BF16_REL and 0.0 < dev_v < BF16_REL, f"ell_gram bf16 against fp32: {dev_g}, {dev_v}")
+        check(0.0 < du < BF16_DU, f"sstep_inner bf16 against fp32: {du}")
+    log(f"[kernels] both kernels on {DATASET} bundles (team 0 first rows, team {P_R - 1} last rows): worst so far "
+        + ", ".join(f"{k} {e:.3g}" for k, e in err.items()))
 
     # ---- phase 4: the main path at full width ---------------------------
     sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=1)
@@ -271,17 +352,20 @@ def main() -> None:
     x0 = torch.zeros(tp.n, dtype=torch.float32, device=device)
     expected = ROUNDS * P_R * (TAU // S)
 
-    ell_gram_and_v.launches = 0
-    sstep_inner.launches = 0
+    def expect_launches(path: str, got: dict, want: dict) -> None:
+        log(f"[main] launches on the {path} path: {got}")
+        for name, count in want.items():
+            check(count == 0 or got[name] > 0, f"the {path} path never launched {name}")
+            check(got[name] == count, f"{path} path: {name} launched {got[name]} times, expected {count}")
+
+    zero_counts()
     x_kernel, losses = run_parallel_sgd(tp, x0, sched)
-    launches = {"ell_gram": ell_gram_and_v.launches, "sstep_inner": sstep_inner.launches}
+    launches = counts()
     sync()
     losses_host = [float(t) for t in losses]
     log(f"[main] losses by round: {' '.join(f'{t:.5f}' for t in losses_host)}")
-    log(f"[main] launches on the main path: {launches} (expected {expected} each)")
-    for name, count in launches.items():
-        check(count > 0, f"the main path never launched {name}")
-        check(count == expected, f"{name}: {count} launches, expected rounds·p_r·τ/s = {expected}")
+    expect_launches("synchronous fp32", launches, {"ell_gram.fp32": expected, "ell_gram.bf16": 0,
+                                                   "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
     check(x_kernel.shape == (tp.n,) and bool(torch.isfinite(x_kernel).all()), "final x is not finite (n,)")
     check(len(losses_host) == ROUNDS and all(math.isfinite(t) for t in losses_host), "losses are not finite")
     check(losses_host[0] < math.log(2.0), f"first loss {losses_host[0]} is not below ln 2")
@@ -300,8 +384,7 @@ def main() -> None:
     finally:
         engine.inner_corrections = kernel_dispatch
     sync()
-    check(ell_gram_and_v.launches == expected and sstep_inner.launches == expected,
-          "the plain run launched a kernel")
+    check(counts() == launches, "the plain run launched a kernel")
     x_max = float(x_plain.abs().max())
     path_gap = float((x_kernel - x_plain).abs().max())
     log(f"[main] kernels vs plain versions end to end: max |Δx| = {path_gap:.3g} with max |x| = {x_max:.3g} "
@@ -343,19 +426,102 @@ def main() -> None:
     log(f"[main] second run of the main path: max |Δx| = {rerun_gap:.3g} (limit {X_TOL * x_max:.3g})")
     check(rerun_gap <= X_TOL * x_max, f"two runs of the main path differ by {rerun_gap}")
 
+    # the delay-D pipeline in bf16: every bundle's (G, v) from the bf16 Gram
+    # kernel, staged D = 2 bundles deep as bf16 wire words, the corrections
+    # in fp32 on the unwired payload (as the reference does)
+    sched16 = dataclasses.replace(sched, delay=DELAY, precision="bf16")
+    zero_counts()
+    x16, losses16 = run_parallel_sgd(tp, x0, sched16)
+    launches16 = counts()
+    sync()
+    l16 = [float(t) for t in losses16]
+    log(f"[delay] D = {DELAY} bf16 losses by round: {' '.join(f'{t:.5f}' for t in l16)}")
+    expect_launches(f"D = {DELAY} bf16", launches16, {"ell_gram.fp32": 0, "ell_gram.bf16": expected,
+                                                      "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
+    check(x16.shape == (tp.n,) and bool(torch.isfinite(x16).all()), "D = 2 bf16: final x is not finite (n,)")
+    check(all(math.isfinite(t) for t in l16) and l16[-1] < l16[0], "D = 2 bf16: the loss did not fall")
+
+    # the same schedule with the plain versions only, and with G off by 1 %
+    engine.inner_corrections = engine.inner_corrections_loop
+    try:
+        x16_plain, _ = run_parallel_sgd(tp, x0, dataclasses.replace(sched16, gram="blocked"))
+    finally:
+        engine.inner_corrections = kernel_dispatch
+    sync()
+    check(counts() == launches16, "the plain D = 2 bf16 run launched a kernel")
+    x16_max = float(x16_plain.abs().max())
+    gap16 = float((x16 - x16_plain).abs().max())
+    engine.bundle_gram_v = skewed_gram
+    try:
+        x16_skew, _ = run_parallel_sgd(tp, x0, sched16)
+    finally:
+        engine.bundle_gram_v = true_gram
+    skew16 = float((x16_skew - x16_plain).abs().max())
+    log(f"[delay] D = {DELAY} bf16, kernels vs plain versions: max |Δx| = {gap16:.3g} with max |x| = {x16_max:.3g} "
+        f"(limit {X_TOL * x16_max:.3g}); with G off by 1 %: {skew16:.3g}")
+    check(x16_max > 0 and gap16 <= X_TOL * x16_max, f"D = 2 bf16: final x is {gap16} from the plain path's")
+    check(skew16 > X_TOL * x16_max, "D = 2 bf16: a Gram matrix wrong by 1 % passes the end-to-end limit")
+
+    # fp32 at the same delay: bf16 within the reference's 1e-3 of it, and not
+    # equal; D = 2 moves the iterate away from D = 0 and still learns
+    sched32 = dataclasses.replace(sched, delay=DELAY)
+    zero_counts()
+    x32, losses32 = run_parallel_sgd(tp, x0, sched32)
+    launches32 = counts()
+    sync()
+    expect_launches(f"D = {DELAY} fp32", launches32, {"ell_gram.fp32": expected, "ell_gram.bf16": 0,
+                                                      "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
+    l32 = [float(t) for t in losses32]
+    bf16_gap = float((x16 - x32).abs().max())
+    delay_gap = float((x32 - x_kernel).abs().max())
+    log(f"[delay] D = {DELAY} bf16 vs fp32: max |Δx| = {bf16_gap:.3g} (limit {BF16_DX}), max |Δloss| "
+        f"{float((losses16 - losses32).abs().max()):.3g}; D = {DELAY} fp32 vs D = 0: max |Δx| = {delay_gap:.3g}, "
+        f"losses {l32[0]:.5f} → {l32[-1]:.5f} (D = 0: {losses_host[0]:.5f} → {losses_host[-1]:.5f})")
+    check(0.0 < bf16_gap < BF16_DX, f"D = 2 bf16 against fp32: max |Δx| = {bf16_gap}")
+    check(delay_gap > X_TOL * x_max, "D = 2 fp32 is not distinguishable from D = 0")
+    check(all(math.isfinite(t) for t in l32) and l32[-1] < l32[0], "D = 2 fp32: the loss did not fall")
+
+    # the comm ledger of the two D = 2 schedules at p_c = 2: bf16 ships the
+    # same words as fp32 at half the Gram bytes
+    t0 = time.perf_counter()
+    led16 = engine_comm_ledger(dataclasses.replace(sched16, p_c=2), tp.n, tp=tp)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    led32 = engine_comm_ledger(dataclasses.replace(sched32, p_c=2), tp.n, tp=tp)
+    capture2_s = time.perf_counter() - t0
+    for led in (led16, led32):
+        led.add_rounds(ROUNDS)
+    w16, w32, b16, b32 = led16.counted_words(), led32.counted_words(), led16.counted_bytes(), led32.counted_bytes()
+    log(f"[ledger] p_c = 2, {ROUNDS} rounds, D = {DELAY}: bf16 {w16} {b16}; fp32 {w32} {b32} "
+        f"(capture on meta tensors {capture_s:.3f} s the first time in this process, {capture2_s:.3f} s the second)")
+    check(w16 == w32 and w16["gram_words"] > 0, "bf16 and fp32 ledgers count different words")
+    check(b16["gram_bytes"] == b32["gram_bytes"] / 2 and b16["sync_bytes"] == b32["sync_bytes"],
+          "the bf16 ledger does not halve the Gram bytes alone")
+    check(led16.delay == DELAY and tp.values.is_cuda, "the ledger capture lost the delay or moved the problem")
+
     # ---- phase 5: times --------------------------------------------------
-    def round_wall_ms() -> float:
+    def round_wall_ms(run_sched) -> float:
         sync()
         t0 = time.perf_counter()
-        run_engine_chunk(tp, x0, 0, ROUNDS, sched)
+        run_engine_chunk(tp, x0, 0, ROUNDS, run_sched)
         sync()
         return (time.perf_counter() - t0) * 1e3 / ROUNDS
 
-    round_ms = statistics.median(round_wall_ms() for _ in range(5))
-    log(f"[times] main path: {round_ms:.3f} ms per round of {P_R} teams × {TAU // S} bundles (wall, median of 5 runs of {ROUNDS})")
+    round_ms = statistics.median(round_wall_ms(sched) for _ in range(5))
+    round16_ms = statistics.median(round_wall_ms(sched16) for _ in range(5))
+    log(f"[times] synchronous fp32 path: {round_ms:.3f} ms per round of {P_R} teams × {TAU // S} bundles; "
+        f"D = {DELAY} bf16 path: {round16_ms:.3f} ms (wall, median of 5 runs of {ROUNDS} rounds each)")
+
+    # the §6.5 phase probes of the D = 2 bf16 schedule at p_c = 2, into its ledger
+    probes = engine_phase_probes(tp, dataclasses.replace(sched16, p_c=2))
+    led16.set_phase_seconds({k: time_phase(fn, *args) * calls for k, (fn, args, calls) in probes.items()})
+    log(f"[ledger] D = {DELAY} bf16 phase seconds a round {led16.phase_seconds}: exposed comm {led16.exposed_comm_s:.3g} s, "
+        f"total {led16.total_comm_s:.3g} s over {led16.rounds} rounds, overlap efficiency {led16.overlap_efficiency:.3g} "
+        f"(the simulated engine's Allreduce is the identity)")
 
     team_idx, team_val = tp.indices[0], tp.values[0]
     rows_local = tp.rows_local
+    w = int(team_idx.shape[1])
     x_now = x_kernel
     report = {}
     for sb, s, b in ((S * B, S, B), (512, 16, 32)):
@@ -365,57 +531,59 @@ def main() -> None:
             r0 = offsets[k % len(offsets)]
             return team_idx[r0 : r0 + sb], team_val[r0 : r0 + sb]
 
-        w = int(team_idx.shape[1])
-        def gram(k):
-            return ell_gram_and_v(*bundle(k), x_now, n=tp.n)
-
-        gram_ms = device_ms(gram, inner=len(offsets))  # one pass over the team's bundles
-        gram_eager_ms = eager_ms(gram, inner=10)
-        gram_plain_ms = eager_ms(lambda k: ell_gram_and_v_blocked(*bundle(k), x_now, n=tp.n, bk=512), inner=1, warmup=1)
-
-        def library(k):
-            dense = densify_bundle_ref(*bundle(k), tp.n)
-            return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_now
-
-        gram_lib_ms = eager_ms(library, inner=2)
-        g, v = gram(0)
-
-        def corrections(k):
-            return sstep_inner(g, v, s, b, ETA)
-
-        inner_ms = device_ms(corrections, inner=20)
-        inner_eager_ms = eager_ms(corrections, inner=10)
-        inner_plain_ms = eager_ms(lambda k: sstep_inner_ref(g, v, s, b, ETA), inner=1, warmup=1)
-
         # bounds from this run's inputs (bundle 0): bytes each read or written
-        # once over the memory rate, against the FP32 operations that (G, v)
-        # needs over the FP32 rate: one multiply-add per pair of nonzeros of
-        # rows i > j that share a column id, one per nonzero for v. The
-        # kernel's design compares every pair of nonzeros of every row pair;
-        # that count is printed beside the bound, not as it.
+        # once over the memory rate, against the operations that (G, v) needs
+        # over the peak rate for the mode's type (FP32 outside the tensor
+        # cores; bf16 dense): one multiply-add per pair of nonzeros of rows
+        # i > j that share a column id, one per nonzero for v. The kernel's
+        # design compares every pair of nonzeros of every row pair; that count
+        # is printed beside the bound, not as it.
         bi, bv = bundle(0)
         nnz = (bv != 0).sum(dim=1).double()
         gram_bytes = bi.numel() * 8 + int(torch.unique(bi).numel()) * 4 + sb * sb * 4 + sb * 4
         gram_flop = 2.0 * matching_pairs(bi, bv, tp.n) + 2.0 * float(nnz.sum())
-        gram_bound = {"bytes": gram_bytes / HBM_BYTES_PER_S * 1e3, "operations": gram_flop / FP32_FLOP_PER_S * 1e3}
         design_compares = float((nnz.sum() ** 2 - (nnz ** 2).sum()) / 2)  # Σ_{i>j} nnz_i·nnz_j
         gram_design_ms = design_compares / FP32_FLOP_PER_S * 1e3  # at one compare per FP32 lane and cycle
         tri = b * b * s * (s - 1) // 2  # entries of G's strict lower block triangle
         inner_bytes = tri * 4 + 2 * sb * 4
         inner_flop = 2.0 * tri + 8.0 * sb
-        inner_bound = {"bytes": inner_bytes / HBM_BYTES_PER_S * 1e3, "operations": inner_flop / FP32_FLOP_PER_S * 1e3}
+        report[sb] = {}
+        for mode, flop_rate in (("fp32", FP32_FLOP_PER_S), ("bf16", BF16_FLOP_PER_S)):
+            def gram(k):
+                return ell_gram_and_v(*bundle(k), x_now, n=tp.n, precision=mode)
 
-        report[sb] = {
-            "ell_gram": dict(ms=gram_ms, eager_ms=gram_eager_ms, plain_ms=gram_plain_ms,
-                             library_ms=gram_lib_ms, bound=gram_bound, design_ops_ms=gram_design_ms),
-            "sstep_inner": dict(ms=inner_ms, eager_ms=inner_eager_ms, plain_ms=inner_plain_ms,
-                                library_ms=None, bound=inner_bound, design_ops_ms=None),
-        }
+            gram_ms = device_ms(gram, inner=len(offsets))  # one pass over the team's bundles
+            gram_eager_ms = eager_ms(gram, inner=10)
+            gram_plain_ms = eager_ms(lambda k: ell_gram_and_v_blocked(*bundle(k), x_now, n=tp.n, bk=512, precision=mode),
+                                     inner=1, warmup=1)
+            wire = torch.float32 if mode == "fp32" else torch.bfloat16
+
+            def library(k):
+                dense = densify_bundle_ref(*bundle(k), tp.n).to(wire)
+                return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_now.to(wire)
+
+            gram_lib_ms = eager_ms(library, inner=2)
+            g, v = ell_gram_and_v(*bundle(0), x_now, n=tp.n)
+
+            def corrections(k):
+                return sstep_inner(g, v, s, b, ETA, precision=mode)
+
+            inner_ms = device_ms(corrections, inner=20)
+            inner_eager_ms = eager_ms(corrections, inner=10)
+            inner_plain_ms = eager_ms(lambda k: sstep_inner_ref(g, v, s, b, ETA, precision=mode), inner=1, warmup=1)
+            report[sb][f"ell_gram.{mode}"] = dict(
+                ms=gram_ms, eager_ms=gram_eager_ms, plain_ms=gram_plain_ms, library_ms=gram_lib_ms,
+                bound={"bytes": gram_bytes / HBM_BYTES_PER_S * 1e3, "operations": gram_flop / flop_rate * 1e3},
+                design_ops_ms=gram_design_ms)
+            report[sb][f"sstep_inner.{mode}"] = dict(
+                ms=inner_ms, eager_ms=inner_eager_ms, plain_ms=inner_plain_ms, library_ms=None,
+                bound={"bytes": inner_bytes / HBM_BYTES_PER_S * 1e3, "operations": inner_flop / flop_rate * 1e3},
+                design_ops_ms=None)
         for name, row in report[sb].items():
             by = max(row["bound"], key=row["bound"].get)
             row["bound_ms"], row["bound_by"] = row["bound"][by], by
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-            log(f"[times] {name:11s} sb = {sb:3d} (s = {s}, b = {b}, w = {w}, n = {tp.n}): kernel {row['ms']:.4f} ms on the "
+            log(f"[times] {name:16s} sb = {sb:3d} (s = {s}, b = {b}, w = {w}, n = {tp.n}): kernel {row['ms']:.4f} ms on the "
                 f"device ({row['eager_ms']:.4f} ms a call from Python), plain {row['plain_ms']:.4f} ms, library {library}, "
                 f"bound {row['bound_ms']:.6f} ms by {by} (bytes {row['bound']['bytes']:.3g}, operations {row['bound']['operations']:.3g})"
                 + ("" if row["design_ops_ms"] is None else f", the design's compares alone {row['design_ops_ms']:.3g} ms"))
@@ -428,29 +596,42 @@ def main() -> None:
     log(f"[times] ell_rmatvec (index_add_) {rmat_ms:.4f} ms a call from Python")
 
     if "--profile" in sys.argv[1:]:
-        profile_main_path(lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched), ROUNDS)
+        profile_main_path("synchronous fp32", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched), ROUNDS)
+        profile_main_path(f"D = {DELAY} bf16", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched16), ROUNDS)
 
     # ---- phase 6: the kernels line, the device lines ---------------------
-    main_row = report[S * B]
+    # each (kernel, mode) with its launches on the path that runs it: the
+    # synchronous fp32 path for both fp32 modes, the D = 2 bf16 path for the
+    # bf16 Gram. No engine path runs the bf16 corrections (the reference's
+    # engine unwires (G, v) to fp32 first): phase 3 alone launches that mode.
+    paths = {"ell_gram.fp32": ("synchronous fp32", launches), "sstep_inner.fp32": ("synchronous fp32", launches),
+             "ell_gram.bf16": (f"D = {DELAY} bf16", launches16), "sstep_inner.bf16": (None, None)}
     kernels = []
-    for name, replaces, err in (
-        ("ell_gram", "src/repro/kernels/ell_gram.py:170", gram_err),
-        ("sstep_inner", "src/repro/kernels/sstep_inner.py:68", inner_err),
-    ):
-        row, wide = main_row[name], report[512][name]
+    for key, (path, path_counts) in paths.items():
+        name, mode = key.split(".")
+        row, wide = report[S * B][key], report[512][key]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": err, "max_err": err,
+            "name": name if mode == "fp32" else f"{name}_bf16", "precision": mode, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": {"ell_gram": "src/repro/kernels/ell_gram.py:170",
+                         "sstep_inner": "src/repro/kernels/sstep_inner.py:68"}[name],
+            "launches": 0 if path_counts is None else path_counts[key], "path": path,
+            "max_abs_err": err[key], "tol": U_TOL if name == "sstep_inner" else GV_TOL,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
             "design_ops_ms": row["design_ops_ms"],
-            "shape": {"sb": S * B, "w": int(team_idx.shape[1]), "n": tp.n},
+            "shape": {"sb": S * B, "w": w, "n": tp.n},
             "sb512": {k: wide[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "design_ops_ms")},
         })
+        if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
+            kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels, "round_ms": round_ms, "eta": ETA, "build_s": build_s,
-                      "rmatvec_ms": rmat_ms, "path_gap": path_gap, "rerun_gap": rerun_gap, "x_max": x_max,
-                      "identity_gap": gap, "skew_gap": skew_gap, "skew_identity_gap": skew_identity_gap}), flush=True)
+    print(json.dumps({"kernels": kernels, "round_ms": round_ms, "round_ms_delay2_bf16": round16_ms, "eta": ETA,
+                      "build_s": build_s, "rmatvec_ms": rmat_ms, "path_gap": path_gap, "rerun_gap": rerun_gap,
+                      "x_max": x_max, "identity_gap": gap, "skew_gap": skew_gap, "skew_identity_gap": skew_identity_gap,
+                      "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
+                      "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
+                      "ledger_delay2_bf16": led16.to_dict()}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

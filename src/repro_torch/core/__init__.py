@@ -8,6 +8,8 @@ The unified engine (repro_torch.core.engine) implements the whole
   ParallelSGDSchedule  the knob object (corners by name: mb_sgd,
                        sstep, fedavg, hybrid)
   bundle_gram_v        the shared s-bundle primitive (G, v)
+  engine_comm_ledger   what a schedule's rounds communicate (CommLedger
+                       of CommRates, captured from the round body)
 
 Configured corners, kept as thin wrappers:
 
@@ -17,12 +19,13 @@ Configured corners, kept as thin wrappers:
   run_hybrid_sgd       HybridSGD, exact simulated-rank semantics
 """
 
-from repro_torch.core.comm import COUNTING, Collectives
+from repro_torch.core.comm import COUNTING, Collectives, CommLedger, CommRate
 from repro_torch.core.engine import (
     GRAM_METHODS,
     ParallelSGDSchedule,
     bundle_gram_v,
     check_delay,
+    engine_comm_ledger,
     engine_loss,
     inner_corrections,
     run_engine_chunk,
@@ -59,6 +62,9 @@ from repro_torch.core.teams import (
 __all__ = [
     "COUNTING",
     "Collectives",
+    "CommLedger",
+    "CommRate",
+    "engine_comm_ledger",
     "GRAM_METHODS",
     "ParallelSGDSchedule",
     "bundle_gram_v",

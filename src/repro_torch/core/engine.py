@@ -33,22 +33,30 @@ decay-aware correction recurrence.
 
 *Communication* is explicit (repro_torch.core.comm): the round body
 issues its two collectives — the per-bundle row-team (G, v) Allreduce
-and the per-round p_r-team average — through the counting collectives.
+and the per-round p_r-team average — through the counting collectives,
+so ``engine_comm_ledger`` can capture exactly what a run communicates
+(on meta tensors: no data, no arithmetic).
 
-Not ported yet, and rejected with ``NotImplementedError`` at the solver
-entries: ``delay > 0`` (the delay-D pipeline) and ``precision="bf16"``.
+``delay = D ≥ 1`` runs the bundle loop as ``delayed_bundle_scan``: the
+(G, v) of bundle t is issued at t and consumed at t + D, through a
+D-deep FIFO that drains before the team average. ``precision="bf16"``
+runs the Gram kernel's bf16 mode and ships (G, v) as bf16 words: the
+payload is cast to bf16 before the Allreduce and back to float32 after
+it (``wire_gv`` / ``unwire_gv``), so the corrections run in float32.
 
 repro_torch.core.{sgd,sstep,fedavg,hybrid} hold configured engine calls.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
 
-from repro_torch.core.comm import COUNTING
+from repro_torch.core.comm import COUNTING, CommLedger, capture_rates
 from repro_torch.core.objective import LOGISTIC, LogisticObjective, Objective
 from repro_torch.core.problem import Problem, problem_loss
 from repro_torch.core.teams import TeamProblem, global_problem
@@ -83,14 +91,22 @@ class ParallelSGDSchedule:
             panels and ignores it.
     bm      optional row tile for the blocked walk's panel expansion;
             any ``bm`` gives the same result. Ignored by the CUDA kernel.
-    precision   "fp32" (default) or "bf16". Validated here; the solver
-            entries reject "bf16" until its kernels are ported.
+    precision   "fp32" (default) or "bf16": the (G, v) kernel rounds its
+            operands to bf16 and accumulates in float32, and the
+            per-bundle (G, v) Allreduce ships bf16 words (half the
+            β·bytes payload; word counts, and hence the Table 2–3
+            closed forms, are unchanged).
     p_c     column shards. Communication-only: it never changes the
             numerics (kept here so one object describes the full mesh).
-    delay   DaSGD-style staleness D (0 = synchronous, the default).
-            Validated here (D ≥ 0, and D ≤ τ/s at the solver entries);
-            the solver entries reject D > 0 until the delay-D pipeline
-            is ported.
+    delay   DaSGD-style staleness D (0 = synchronous, the default). With
+            D ≥ 1 the (G, v) collective of bundle t is *issued* at t but
+            *consumed* at bundle t+D — it rides a D-deep staging buffer
+            and overlaps the next D bundles' Gram compute; the last D
+            bundles drain before the round's parameter average, so round
+            boundaries (chunking, averaging cadence) are unchanged. A
+            numerical knob: D ≥ 1 changes the iterates (each bundle's
+            gradient is D bundles stale), not the communication volume.
+            Must satisfy D ≤ τ/s (the per-round bundle count).
     """
 
     p_r: int = 1
@@ -201,6 +217,29 @@ def bundle_gram_v(
     raise ValueError(f"gram={gram!r} not in {GRAM_METHODS}")
 
 
+def _tree_map(fn, tree):
+    """``fn`` on a tensor, or on each tensor of a tuple."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tuple(fn(t) for t in tree)
+
+
+def wire_gv(tree, precision: str):
+    """Cast a (G, v) payload to its on-wire dtype: bf16 under the bf16
+    precision knob (half the collective's bytes), untouched at fp32."""
+    if precision != "bf16":
+        return tree
+    return _tree_map(lambda t: t.to(torch.bfloat16), tree)
+
+
+def unwire_gv(tree, precision: str, dtype=torch.float32):
+    """Undo ``wire_gv`` after the collective: corrections and updates
+    accumulate in ``dtype`` (float32) whatever the wire dtype."""
+    if precision != "bf16":
+        return tree
+    return _tree_map(lambda t: t.to(dtype), tree)
+
+
 def _decay(eta, lam: float) -> np.float32:
     """ρ = 1 − ηλ formed in float32, as the JAX engine forms it."""
     return np.float32(1.0) - np.float32(eta) * np.float32(lam)
@@ -275,10 +314,68 @@ def inner_corrections(
     return inner_corrections_loop(g, v, s, b, eta, objective)
 
 
-# ``_team_inner_iterations`` looks ``bundle_gram_v`` and ``inner_corrections``
-# up in this module when it runs: ``chip_smoke.py`` rebinds them (the plain
-# loop for its all-plain run, a skewed Gram to show that its limits can
-# fail). Keep both calls late-bound.
+# ``_team_inner_iterations`` and ``delayed_bundle_scan`` look
+# ``bundle_gram_v`` and ``inner_corrections`` up in this module when they
+# run: ``chip_smoke.py`` rebinds them (the plain loop for its all-plain run,
+# a skewed Gram to show that its limits can fail). Keep the calls late-bound.
+def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
+                        sched: ParallelSGDSchedule, eta,
+                        objective: Objective = LOGISTIC):
+    """The delay-D software pipeline over one round's τ/s bundles, for
+    ``sched.delay ≥ 1`` (DaSGD, arXiv:2006.00441).
+
+    At step t the body computes bundle t's (G, v) at the current
+    (D-bundle-stale) iterate and *issues* its row-team Allreduce
+    (``COUNTING.issue_allreduce_cols``); the staged result waits in a D-deep
+    FIFO and is *consumed* (``COUNTING.await_allreduce`` → corrections →
+    weight update) at step t+D. After the loop the last D staged entries
+    drain, *before* the caller's parameter average: every round boundary
+    carries only ``x``, so chunking and the τ-cadence averaging are
+    where the synchronous schedule puts them.
+
+    The reference runs its first D steps on zero entries and masks their
+    updates out (a scan has a fixed body); here those steps consume
+    nothing, which is the same result — the mask returns x unchanged.
+    Exactly ``bundles`` updates (and, under L2, ``bundles`` decay folds)
+    are applied per round, as in the synchronous path.
+
+    ``slice_bundle(t) -> (idx, val)`` supplies the (s·b, width) ELL
+    bundle (views of the team's tensors). Under bf16 the FIFO stages the
+    bf16 wire payload — exactly what the in-flight Allreduce carries.
+    At s = 1 the pipeline still computes the full (G, v) (its
+    distributed twin reduces the dense block), so a delayed FedAvg runs
+    both kernels."""
+    s, b = sched.s, sched.b
+    lam = objective.l2
+    scale = eta_over_b(eta, b)
+    rho_s = float(_integer_pow(_decay(eta, lam), s)) if lam != 0.0 else None
+
+    def compute_issue(x, t):
+        idx, val = slice_bundle(t)
+        g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
+                             bm=sched.bm, precision=sched.precision)
+        g, v = COUNTING.issue_allreduce_cols(
+            wire_gv((g, v), sched.precision), calls_per_round=bundles
+        )
+        return idx, val, g, v
+
+    def consume_apply(x, entry):
+        idx, val, g, v = entry
+        g, v = unwire_gv(COUNTING.await_allreduce((g, v)), sched.precision)
+        u = inner_corrections(g, v, s, b, eta, objective)
+        upd = scale * ell_rmatvec(EllBlock(indices=idx, values=val, n=n), u).to(x.dtype)
+        return x + upd if lam == 0.0 else rho_s * x + upd
+
+    fifo = collections.deque()
+    for t in range(bundles):
+        fifo.append(compute_issue(x, t))
+        if t >= sched.delay:
+            x = consume_apply(x, fifo.popleft())
+    while fifo:  # drain the last D entries before the team average
+        x = consume_apply(x, fifo.popleft())
+    return x
+
+
 def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
                            sched: ParallelSGDSchedule,
                            objective: Objective = LOGISTIC):
@@ -295,12 +392,20 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
     scale = eta_over_b(eta, b)
     rho_s = float(_integer_pow(_decay(eta, lam), s)) if lam != 0.0 else None
 
-    for t in range(bundles):
+    def slice_bundle(t):
         k0 = round_idx * bundles + t
         # cyclic rows [start, start + sb); clamped like a dynamic slice
         start = min((k0 * sb) % m_local, max(m_local - sb, 0))
-        idx = indices[start : start + sb]
-        val = values[start : start + sb]
+        return indices[start : start + sb], values[start : start + sb]
+
+    if sched.delay:
+        return delayed_bundle_scan(
+            x, slice_bundle=slice_bundle, bundles=bundles, n=n, sched=sched,
+            eta=eta, objective=objective,
+        )
+
+    for t in range(bundles):
+        idx, val = slice_bundle(t)
         bundle = EllBlock(indices=idx, values=val, n=n)
         if s == 1:
             # FedAvg/MB-SGD corner: the Gram is empty (no deferred
@@ -309,17 +414,21 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
             # full (G, v) bundle even at s = 1, so the counted payload
             # is pinned to the same sb² + sb words.
             yx = COUNTING.allreduce_cols(
-                ell_matvec(bundle, x),
+                wire_gv(ell_matvec(bundle, x), sched.precision),
                 calls_per_round=bundles,
                 words_per_call=sb * sb + sb,
             )
-            u = objective.residual(yx)
+            u = objective.residual(unwire_gv(yx, sched.precision, x.dtype))
         else:
             g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
                                  bm=sched.bm, precision=sched.precision)
             # row-team Allreduce of the bundle (G, v) — identity here
-            # (the simulated rank computes the full reduction).
-            g, v = COUNTING.allreduce_cols((g, v), calls_per_round=bundles)
+            # (the simulated rank computes the full reduction), the
+            # recorded payload when the round body is captured.
+            g, v = COUNTING.allreduce_cols(
+                wire_gv((g, v), sched.precision), calls_per_round=bundles
+            )
+            g, v = unwire_gv((g, v), sched.precision)
             u = inner_corrections(g, v, s, b, eta, objective)
         upd = scale * ell_rmatvec(bundle, u).to(x.dtype)
         if lam == 0.0:
@@ -365,20 +474,6 @@ def check_delay(sched: ParallelSGDSchedule) -> None:
         )
 
 
-def _check_ported(sched: ParallelSGDSchedule) -> None:
-    """Reject, loudly, the schedule knobs whose code is not ported yet."""
-    if sched.delay > 0:
-        raise NotImplementedError(
-            f"delay={sched.delay}: the delay-D pipeline (delayed_bundle_scan) is not "
-            f"ported yet — ROADMAP Queue 1 item 5"
-        )
-    if sched.precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (bf16 compute/wire) is not ported yet — ROADMAP "
-            "Queue 1 item 5 and Queue 2"
-        )
-
-
 def engine_loss(gp: Problem, x: torch.Tensor) -> torch.Tensor:
     """The loss probe — the same ``problem_loss`` (under ``gp``'s
     objective) the monolithic loop samples at chunk boundaries."""
@@ -401,7 +496,6 @@ def run_engine_chunk(
     if sched.eta <= 0:
         raise ValueError(f"eta={sched.eta} must be > 0 to run the solver")
     check_delay(sched)
-    _check_ported(sched)
     eta = np.float32(sched.eta)
     for r in range(int(round_offset), int(round_offset) + int(k)):
         x = _one_round(tp, x, r, eta, sched)
@@ -436,7 +530,6 @@ def run_parallel_sgd(
         raise ValueError(
             f"local rows {tp.rows_local} must be divisible by s·b={sched.s * sched.b}"
         )
-    _check_ported(sched)
     eta = np.float32(sched.eta)
     gp = global_problem(tp)
 
@@ -453,6 +546,82 @@ def run_parallel_sgd(
     if losses:
         return x, torch.stack(losses)
     return x, torch.zeros((0,), dtype=x0.dtype, device=x0.device)
+
+
+def engine_comm_ledger(
+    sched: ParallelSGDSchedule,
+    n: int,
+    tp: TeamProblem | None = None,
+    width: int = 2,
+) -> CommLedger:
+    """The simulated engine's per-rank ``CommLedger``: every collective
+    the round body issues, captured by running ``_one_round`` once on
+    ``device="meta"`` tensors (no data, no arithmetic, no dataset).
+
+    With ``tp`` given the capture uses the real problem's shapes;
+    without it a shape-only stand-in is made (``width`` nonzeros per
+    row, one bundle of rows per team) — the communication structure
+    depends only on the schedule and n, never on the data, so both
+    forms record identical rates. Spans come from the schedule's
+    (p_r, p_c): the ledger of the simulated run is the ledger of the
+    mesh execution it simulates."""
+    if tp is None:
+        shape = (sched.p_r, sched.s * sched.b, width)
+        tp = TeamProblem(
+            indices=torch.empty(shape, dtype=torch.int32, device="meta"),
+            values=torch.empty(shape, dtype=torch.float32, device="meta"),
+            rows_valid=torch.empty(shape[:2], dtype=torch.bool, device="meta"),
+            p=sched.p_r,
+            m=sched.p_r * shape[1],
+            n=n,
+        )
+    else:
+        tp = dataclasses.replace(
+            tp, indices=tp.indices.to("meta"), values=tp.values.to("meta"),
+            rows_valid=tp.rows_valid.to("meta"),
+        )
+    rates = capture_rates(
+        partial(_one_round, sched=sched),
+        tp,
+        torch.empty((n,), dtype=torch.float32, device="meta"),
+        0,
+        np.float32(sched.eta),
+        spans={"cols": sched.p_c, "rows": sched.p_r},
+    )
+    return CommLedger(rates=rates, delay=sched.delay)
+
+
+def engine_phase_probes(tp: TeamProblem, sched: ParallelSGDSchedule) -> dict:
+    """Per-phase probes for the simulated engine — the §6.5 phase split
+    (compute vs. the two comm phases) on the round body's real payload
+    shapes, *outside* the training step (which they never touch).
+
+    Returns ``{phase: (fn, args, calls_per_round)}`` for ``time_phase``.
+    On this engine the Gram "allreduce" is the identity (the simulated
+    ranks already hold globally reduced values) and the parameter
+    average is a real mean over the stacked team iterates — so the
+    probed comm phases measure what the one-device simulation pays, not
+    what a mesh would."""
+    sb = sched.s * sched.b
+    bundles = sched.tau // sched.s
+    reps = -(-sb // tp.rows_local)
+    bi = tp.indices[0].repeat(reps, 1)[:sb].contiguous()
+    bv = tp.values[0].repeat(reps, 1)[:sb].contiguous()
+    dev = tp.values.device
+    x0 = torch.zeros((tp.n,), dtype=torch.float32, device=dev)
+
+    def compute(i, v, x):
+        return bundle_gram_v(i, v, x, tp.n, gram=sched.gram, bk=sched.bk, bm=sched.bm,
+                             precision=sched.precision)
+
+    g0 = torch.zeros((sb, sb), dtype=torch.float32, device=dev)
+    v0 = torch.zeros((sb,), dtype=torch.float32, device=dev)
+    xs = torch.zeros((sched.p_r, tp.n), dtype=torch.float32, device=dev)
+    return {
+        "bundle_compute": (compute, (bi, bv, x0), bundles),
+        "allreduce_gv": (lambda g, v: (g + 0.0, v + 0.0), (g0, v0), bundles),
+        "param_avg": (lambda t: torch.mean(t, dim=0), (xs,), 1),
+    }
 
 
 def single_team(problem: Problem) -> TeamProblem:

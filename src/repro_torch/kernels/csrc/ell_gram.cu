@@ -48,7 +48,20 @@
 //     tiles also compute v for their 8 rows (a gather of x, one warp per
 //     row, shuffle-reduced), so v costs no second launch.
 // fp32 FMA throughout: no tensor cores, no TF32.
+//
+// bf16 mode (`bf16` = 1; the reference's `compute_dtype=bfloat16`): every
+// value is rounded to bf16 (round to nearest even) as it is staged, on the
+// i side and the j side, and so is each gathered x entry of v; products and
+// sums stay fp32, and G and v are fp32. The product of two bf16 values is
+// exact in fp32, so on rows whose column ids are unique the mode differs
+// from its plain version only in the order of the fp32 sums. Duplicate
+// column ids in a row are not merged: each entry is rounded on its own,
+// where the reference rounds their sum (the dense panel entry) once. On
+// such rows the two differ by up to one bf16 rounding of that sum (relative
+// 2⁻⁸); no registered dataset and no generator row has duplicate ids. The
+// mode is a template parameter: one source, two instantiations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +74,14 @@ constexpr int R = 8;        // row-i entries held in registers
 constexpr int PAIRS = T * T;
 constexpr int THREADS = PAIRS * KS;
 
+// x as a product operand: rounded to bf16 in the bf16 mode, unchanged in fp32
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 ell_gram_kernel(const int* __restrict__ idx, const float* __restrict__ val,
                 const float* __restrict__ x, float* __restrict__ G,
@@ -98,7 +119,7 @@ ell_gram_kernel(const int* __restrict__ idx, const float* __restrict__ val,
       const int a = e / T, r = e % T;
       const int row = i0 + r;
       const size_t g = (size_t)row * w + ci + a;
-      const float value = ((a < ni) && (row < sb)) ? val[g] : 0.0f;
+      const float value = ((a < ni) && (row < sb)) ? operand<BF16>(val[g]) : 0.0f;
       si_idx[e] = (value != 0.0f) ? idx[g] : -1;
       si_val[e] = value;
     }
@@ -109,7 +130,7 @@ ell_gram_kernel(const int* __restrict__ idx, const float* __restrict__ val,
         const int a = e / T, r = e % T;
         const int row = j0 + r;
         const size_t g = (size_t)row * w + cj + a;
-        const float value = (row < sb) ? val[g] : 0.0f;
+        const float value = (row < sb) ? operand<BF16>(val[g]) : 0.0f;
         sj_idx[e] = (value != 0.0f) ? idx[g] : -2;
         sj_val[e] = value;
       }
@@ -154,7 +175,8 @@ ell_gram_kernel(const int* __restrict__ idx, const float* __restrict__ val,
       if (row >= sb) break;
       const size_t base = (size_t)row * w;
       float part = 0.0f;
-      for (int a = lane; a < w; a += 32) part = fmaf(val[base + a], x[idx[base + a]], part);
+      for (int a = lane; a < w; a += 32)
+        part = fmaf(operand<BF16>(val[base + a]), operand<BF16>(x[idx[base + a]]), part);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
       if (lane == 0) v[row] = part;
@@ -166,12 +188,14 @@ ell_gram_kernel(const int* __restrict__ idx, const float* __restrict__ val,
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = launched).
 // idx (sb, w) int32 row-major, val (sb, w) float32, x (n,) float32 with every
-// idx in [0, n); G (sb, sb) and v (sb,) are written in full.
+// idx in [0, n); G (sb, sb) and v (sb,) are written in full. bf16 = 0 is the
+// fp32 mode, 1 the bf16 mode.
 extern "C" int ell_gram_launch(const void* idx, const void* val, const void* x,
-                               void* G, void* v, int sb, int w, void* stream) {
+                               void* G, void* v, int sb, int w, int bf16, void* stream) {
   const int tiles = (sb + T - 1) / T;
   dim3 grid(tiles, tiles);
-  ell_gram_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = bf16 ? ell_gram_kernel<true> : ell_gram_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(val),
       static_cast<const float*>(x), static_cast<float*>(G), static_cast<float*>(v), sb, w);
   return static_cast<int>(cudaGetLastError());

@@ -29,7 +29,15 @@
 // __syncthreads() separates the steps. s, b and η/b are runtime arguments:
 // one binary serves every schedule. The residual is the two-branch,
 // overflow-safe form with expf (no fast-math).
+//
+// bf16 mode (`bf16` = 1; the reference's `compute_dtype=bfloat16`): each
+// G entry and each u entry is rounded to bf16 (round to nearest even) as it
+// enters the dot, and the products are summed in fp32. The product of two
+// bf16 values is exact in fp32, so the mode differs from its plain version
+// only in the order of the fp32 sums. z, the residual and the stored u stay
+// fp32. The mode is a template parameter: one source, two instantiations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +54,14 @@ __device__ __forceinline__ float logistic_residual(float z) {
   return 1.0f / (1.0f + expf(z));
 }
 
+// x as a dot operand: rounded to bf16 in the bf16 mode, unchanged in fp32
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 sstep_inner_kernel(const float* __restrict__ G, const float* __restrict__ v,
                    float* __restrict__ u_out, int s, int b, float eta_over_b) {
@@ -64,7 +80,7 @@ sstep_inner_kernel(const float* __restrict__ G, const float* __restrict__ v,
       const int row = cols + r;
       const float* __restrict__ g_row = G + (size_t)row * sb;
       float part = 0.0f;
-      for (int c = lane; c < cols; c += 32) part = fmaf(g_row[c], u[c], part);
+      for (int c = lane; c < cols; c += 32) part = fmaf(operand<BF16>(g_row[c]), operand<BF16>(u[c]), part);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
       if (lane == 0) {
@@ -83,10 +99,12 @@ sstep_inner_kernel(const float* __restrict__ G, const float* __restrict__ v,
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = launched).
 // G (sb, sb) float32 row-major, strictly lower; v (sb,) float32; u (sb,) is
 // written in full. sb·4 bytes of dynamic shared memory (the wrapper bounds sb).
+// bf16 = 0 is the fp32 mode, 1 the bf16 mode.
 extern "C" int sstep_inner_launch(const void* G, const void* v, void* u, int s, int b,
-                                  float eta_over_b, void* stream) {
+                                  float eta_over_b, int bf16, void* stream) {
   const size_t smem = (size_t)s * b * sizeof(float);
-  sstep_inner_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = bf16 ? sstep_inner_kernel<true> : sstep_inner_kernel<false>;
+  kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(G), static_cast<const float*>(v), static_cast<float*>(u), s, b,
       eta_over_b);
   return static_cast<int>(cudaGetLastError());

@@ -24,6 +24,22 @@ Pads are (idx 0, val 0) and contribute nothing. Accumulation is
 float32 (float64 inputs stay float64 in the plain version; the kernel
 takes float32 only).
 
+Precision. ``precision="bf16"`` is the reference's
+``compute_dtype=bfloat16``: each row's per-column value (the dense panel
+entry) and x are rounded to bf16, the products are accumulated in
+float32, and G and v stay float32. The plain version builds each panel
+in float32, rounds it to bf16 and rounds x to bf16, then takes float32
+dots — a product of two bf16 values is exact in float32, so it differs
+from the reference only in the order of the sums. The CUDA kernel
+rounds each stored entry as it is staged and does not merge duplicate
+column ids of a row: where a row repeats an id, the reference and the
+plain version round the sum once and the kernel rounds each part, a
+difference of up to one bf16 rounding (relative 2⁻⁸) of that entry. No
+registered dataset and no generator row repeats an id.
+
+Meta tensors (the comm ledger's structural capture) get outputs of the
+right shape and dtype and no arithmetic.
+
 Oracle: ``repro_torch.kernels.ref.ell_gram_and_v_ref`` (dense scatter).
 """
 
@@ -43,22 +59,25 @@ def _lib():
     if _LIB is None:
         lib = _build.load_library("ell_gram")
         lib.ell_gram_launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.ell_gram_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+PRECISIONS = ("fp32", "bf16")
+
+
 def check_precision(precision: str) -> None:
-    """The kernels' ``precision`` knob: only "fp32" exists so far."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (bf16 panel and dots, fp32 accumulate) is not ported "
-            "yet — ROADMAP Queue 2, the bf16 mode of each kernel"
-        )
-    if precision != "fp32":
+    """The kernels' ``precision`` knob: "fp32" or "bf16"."""
+    if precision not in PRECISIONS:
         raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and back to its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def _prep_panels(values: torch.Tensor, x: torch.Tensor, n: int, bk: int):
@@ -113,10 +132,17 @@ def ell_gram_and_v_blocked(
     check_precision(precision)
     sb, _ = values.shape
     acc, x, n_panels = _prep_panels(values, x, n, bk)
+    if values.is_meta:  # shapes only: no panel walk
+        return (torch.empty((sb, sb), dtype=acc, device="meta"),
+                torch.empty((sb,), dtype=acc, device="meta"))
+    if precision == "bf16":
+        x = bf16_round(x)
     g = torch.zeros((sb, sb), dtype=acc, device=values.device)
     v = torch.zeros((sb,), dtype=acc, device=values.device)
     for k in range(n_panels):
         panel = panel_from_ell(indices, values, k, bk, acc, bm)
+        if precision == "bf16":
+            panel = bf16_round(panel)
         xblk = x[k * bk : (k + 1) * bk]
         g = g + panel @ panel.T
         v = v + panel @ xblk
@@ -139,8 +165,9 @@ def ell_gram_and_v(
     stream, no synchronisation; ``bk``/``bm`` are ignored (the kernel's
     result does not depend on them) and every column id must lie in
     [0, n) — that is not checked on the device. A failed build or
-    launch raises. CPU tensors: the plain ``ell_gram_and_v_blocked``.
-    Each kernel launch adds one to ``ell_gram_and_v.launches``."""
+    launch raises. CPU (and meta) tensors: the plain
+    ``ell_gram_and_v_blocked``. Each kernel launch adds one to
+    ``ell_gram_and_v.launches[precision]``."""
     check_precision(precision)
     if not (indices.device == values.device == x.device):
         raise ValueError(
@@ -148,7 +175,7 @@ def ell_gram_and_v(
             f"{values.device}, {x.device}"
         )
     if not values.is_cuda:
-        return ell_gram_and_v_blocked(indices, values, x, n=n, bk=bk, bm=bm)
+        return ell_gram_and_v_blocked(indices, values, x, n=n, bk=bk, bm=bm, precision=precision)
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if values.dtype != torch.float32 or x.dtype != torch.float32:
@@ -174,12 +201,15 @@ def ell_gram_and_v(
     with torch.cuda.device(values.device):
         rc = lib.ell_gram_launch(
             indices.data_ptr(), values.data_ptr(), x.data_ptr(), g.data_ptr(),
-            v.data_ptr(), sb, w, torch.cuda.current_stream().cuda_stream,
+            v.data_ptr(), sb, w, int(precision == "bf16"),
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"ell_gram kernel launch failed: CUDA error {rc} (sb={sb}, w={w})")
-    ell_gram_and_v.launches += 1
+        raise RuntimeError(
+            f"ell_gram kernel launch failed: CUDA error {rc} (sb={sb}, w={w}, {precision})"
+        )
+    ell_gram_and_v.launches[precision] += 1
     return g, v
 
 
-ell_gram_and_v.launches = 0
+ell_gram_and_v.launches = dict.fromkeys(PRECISIONS, 0)

@@ -18,6 +18,16 @@ each. Two versions of the same function live here:
 
 Both hardcode the logistic residual and have no L2 decay; the engine's
 ``inner_corrections`` covers the other objectives and λ > 0.
+
+``precision="bf16"`` is the reference's ``compute_dtype=bfloat16``: the
+G row panel and u are rounded to bf16 for the dot only, the products
+are summed in float32, and z, the residual and the stored u stay
+float32. The plain version rounds its operands with
+``.to(torch.bfloat16).float()`` and takes a float32 mat-vec (a product
+of two bf16 values is exact in float32), so the kernel and its plain
+version differ only in the order of the sums. The engine never runs
+this mode: under its bf16 schedule it unwires (G, v) to float32 and
+runs the float32 corrections, as the reference does.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ell_gram import check_precision
+from repro_torch.kernels.ell_gram import PRECISIONS, bf16_round, check_precision
 
 # u lives in dynamic shared memory; stay under the 48 KB that needs no opt-in
 MAX_SB = 48 * 1024 // 4
@@ -41,7 +51,7 @@ def _lib():
     if _LIB is None:
         lib = _build.load_library("sstep_inner")
         lib.sstep_inner_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.sstep_inner_launch.restype = ctypes.c_int
         _LIB = lib
@@ -53,15 +63,19 @@ def eta_over_b(eta, b: int) -> float:
     return float(np.float32(eta) / np.float32(b))
 
 
-def sstep_inner_ref(g: torch.Tensor, v: torch.Tensor, s: int, b: int, eta: float) -> torch.Tensor:
+def sstep_inner_ref(g: torch.Tensor, v: torch.Tensor, s: int, b: int, eta: float,
+                    *, precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch oracle — the same loop the engine runs at the
-    logistic default."""
+    logistic default; under "bf16" the dot's operands are rounded to
+    bf16 (see the module note)."""
     from repro_torch.core.objective import LOGISTIC
 
+    check_precision(precision)
+    operand = bf16_round if precision == "bf16" else (lambda t: t)
     scale = eta_over_b(eta, b)
     u = torch.zeros(s * b, dtype=v.dtype, device=v.device)
     for j in range(s):
-        zj = v[j * b : (j + 1) * b] + scale * (g[j * b : (j + 1) * b] @ u)
+        zj = v[j * b : (j + 1) * b] + scale * (operand(g[j * b : (j + 1) * b]) @ operand(u))
         u[j * b : (j + 1) * b] = LOGISTIC.residual(zj)
     return u
 
@@ -82,7 +96,7 @@ def sstep_inner(
     stream, no synchronisation; a failed build or launch raises. CPU
     tensors: the plain ``sstep_inner_ref``. s, b and η are runtime
     arguments of the kernel. Each kernel launch adds one to
-    ``sstep_inner.launches``."""
+    ``sstep_inner.launches[precision]``."""
     check_precision(precision)
     s, b = int(s), int(b)
     sb = s * b
@@ -95,7 +109,8 @@ def sstep_inner(
     if g.device != v.device:
         raise ValueError(f"G and v must share a device, got {g.device} and {v.device}")
     if not g.is_cuda:
-        return sstep_inner_ref(g.to(torch.float32), v.to(torch.float32), s, b, eta)
+        return sstep_inner_ref(g.to(torch.float32), v.to(torch.float32), s, b, eta,
+                               precision=precision)
     if g.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32 G and v, got {g.dtype}, {v.dtype}")
     if not (g.is_contiguous() and v.is_contiguous()):
@@ -108,12 +123,14 @@ def sstep_inner(
     with torch.cuda.device(g.device):
         rc = lib.sstep_inner_launch(
             g.data_ptr(), v.data_ptr(), u.data_ptr(), s, b, eta_over_b(eta, b),
-            torch.cuda.current_stream().cuda_stream,
+            int(precision == "bf16"), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sstep_inner kernel launch failed: CUDA error {rc} (s={s}, b={b})")
-    sstep_inner.launches += 1
+        raise RuntimeError(
+            f"sstep_inner kernel launch failed: CUDA error {rc} (s={s}, b={b}, {precision})"
+        )
+    sstep_inner.launches[precision] += 1
     return u
 
 
-sstep_inner.launches = 0
+sstep_inner.launches = dict.fromkeys(PRECISIONS, 0)

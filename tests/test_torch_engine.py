@@ -249,15 +249,3 @@ def test_solver_entry_validation():
     with pytest.raises(ValueError):
         tengine.bundle_gram_v(tt.indices[0], tt.values[0], x0, tt.n, gram="pallas")
 
-
-@pytest.mark.parametrize("kw,match", [(dict(delay=1), "delay"), (dict(precision="bf16"), "bf16")])
-def test_unported_knobs_raise_not_implemented(kw, match):
-    """Valid schedules whose code is not ported yet are refused at both
-    solver entries — never silently run as something else."""
-    _, tt, x0 = _both_problems(2, "logistic", 0.0)
-    x0 = torch.from_numpy(x0)
-    sched = tengine.ParallelSGDSchedule.hybrid(2, 4, 8, 0.1, 8, 2, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tengine.run_parallel_sgd(tt, x0, sched)
-    with pytest.raises(NotImplementedError, match=match):
-        tengine.run_engine_chunk(tt, x0, 0, 1, sched)

@@ -22,7 +22,10 @@ SLICE_MODULES = [
     "repro_torch.core.engine", "repro_torch.core.sgd", "repro_torch.core.sstep",
     "repro_torch.core.fedavg", "repro_torch.core.hybrid", "repro_torch.kernels.ref",
     "repro_torch.kernels.ell_gram", "repro_torch.kernels.sstep_inner",
-    "repro_torch.kernels._build",
+    "repro_torch.kernels._build", "repro_torch.costmodel", "repro_torch.costmodel.machines",
+    "repro_torch.costmodel.hockney", "repro_torch.costmodel.optimum",
+    "repro_torch.costmodel.calibrate", "repro_torch.costmodel.refine",
+    "repro_torch.costmodel.topology",
 ]
 
 _IMPORT_ALL = """
@@ -78,7 +81,9 @@ def test_every_kernel_has_source_plain_version_and_counter():
         assert _build.library_path(name).parent == _build.build_dir()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
-    assert isinstance(ell_gram_and_v.launches, int) and isinstance(sstep_inner.launches, int)
+    # one count per mode of each kernel
+    for counts in (ell_gram_and_v.launches, sstep_inner.launches):
+        assert set(counts) == {"fp32", "bf16"} and all(isinstance(c, int) for c in counts.values())
     assert callable(ell_gram_and_v_blocked) and callable(sstep_inner_ref)
     # the build directory is git-ignored
     ignored = (ROOT / ".gitignore").read_text().split()

@@ -65,7 +65,7 @@ def test_ell_gram_sweep(sb, n, width, bk, bm, seed):
                                   n=n, bk=bk, bm=bm)
     og, ov = jref.ell_gram_and_v_ref(jnp.asarray(idx), jnp.asarray(val), jnp.asarray(x), n)
     ti, tv, tx = torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(x)
-    launches = tgram.ell_gram_and_v.launches
+    launches = dict(tgram.ell_gram_and_v.launches)
     for g, v in (
         tgram.ell_gram_and_v_blocked(ti, tv, tx, n=n, bk=bk, bm=bm),
         tgram.ell_gram_and_v(ti, tv, tx, n=n, bk=bk, bm=bm),
@@ -100,17 +100,22 @@ def test_ell_gram_bm_gives_identical_panels():
 
 
 def test_kernel_wrappers_reject_what_is_not_ported():
+    """A precision the reference has not ("fp16") and shapes that do not
+    fit are refused by every wrapper and plain version; both modes of
+    the reference ("fp32", "bf16") run."""
     idx, val, x = _bundle(8, 20, 3, 0)
     ti, tv, tx = torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tgram.ell_gram_and_v(ti, tv, tx, n=20, precision="bf16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tgram.ell_gram_and_v_blocked(ti, tv, tx, n=20, precision="bf16")
-    with pytest.raises(ValueError):
-        tgram.ell_gram_and_v(ti, tv, tx, n=20, precision="fp16")
+    for fn in (tgram.ell_gram_and_v, tgram.ell_gram_and_v_blocked):
+        with pytest.raises(ValueError, match="precision"):
+            fn(ti, tv, tx, n=20, precision="fp16")
+        for precision in ("fp32", "bf16"):
+            g, v = fn(ti, tv, tx, n=20, precision=precision)
+            assert g.dtype == v.dtype == torch.float32
     g = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        sstep_inner(g, torch.zeros(8), 2, 4, 0.1, precision="bf16")
+    for fn in (sstep_inner, sstep_inner_ref):
+        with pytest.raises(ValueError, match="precision"):
+            fn(g, torch.zeros(8), 2, 4, 0.1, precision="fp16")
+        assert fn(g, torch.zeros(8), 2, 4, 0.1, precision="bf16").shape == (8,)
     with pytest.raises(ValueError):
         sstep_inner(g, torch.zeros(8), 2, 8, 0.1)  # shapes do not match s·b
 
@@ -159,7 +164,7 @@ def test_sstep_inner_kernel_sweep(s, b, eta, seed):
     want_kernel = np.asarray(j_sstep_inner(jnp.asarray(g), jnp.asarray(v), s, b, eta))
     want_ref = np.asarray(j_sstep_inner_ref(jnp.asarray(g), jnp.asarray(v), s, b, eta))
     tg, tv = torch.from_numpy(g), torch.from_numpy(v)
-    launches = sstep_inner.launches
+    launches = dict(sstep_inner.launches)
     for got in (sstep_inner_ref(tg, tv, s, b, eta), sstep_inner(tg, tv, s, b, eta)):
         assert got.dtype == torch.float32 and got.shape == (s * b,)
         np.testing.assert_allclose(got.numpy(), want_kernel, **U_TOL)
