@@ -18,7 +18,9 @@ through its kernels, reads the comm ledger, times the kernels, and prints
 
 ``python3 chip_smoke.py --profile`` also traces one more run of the
 synchronous fp32 path and of the D = 2 bf16 path with ``torch.profiler`` and
-prints the device time by kernel.
+prints the device time by kernel. ``--ab OLD.cu`` (a path from the repo root)
+also builds an earlier ``ell_gram.cu`` whose C entry point takes no launch
+geometry and times it in turns with this one at each timed shape and mode.
 
 Any failed phase ends the process with a non-zero exit code; there is no
 CPU mode: without a CUDA device the script fails at once.
@@ -30,6 +32,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +71,9 @@ DELAY = 2
 
 # the main path: full-size rcv1 (m = 20,242, n = 47,236, z̄ = 74), 4 row teams
 DATASET = "rcv1"
+NEWS20_N = 1355191  # news20's columns: a phase-3 shape and a timed one, at its ELL width 540
+# the timings kept for each shape beside the main path's in the kernels line
+TIMED_KEYS = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "design_ops_ms")
 P_R, S, B, TAU, ROUNDS, ETA = 4, 4, 32, 32, 8, 1.0
 
 
@@ -175,6 +181,39 @@ def matching_pairs(idx: torch.Tensor, val: torch.Tensor, n: int) -> float:
     return float(((per_col ** 2).sum() - (per_cell ** 2).sum()) / 2)
 
 
+def gram_probes(val: torch.Tensor) -> float:
+    """Σ_{i>j} nnz_i: the table lookups of the hash-probe Gram kernel on
+    this bundle — each nonzero of row i is looked up in every row j < i."""
+    nnz = (val != 0).sum(dim=1).double()
+    return float((nnz * torch.arange(val.shape[0], device=val.device, dtype=torch.float64)).sum())
+
+
+EDGE_KINDS = ("all_pads", "col0_beside_pads", "shuffled", "id_thrice")
+
+
+def edge_bundle(kind: str, sb: int, w: int, n: int, seed: int):
+    """ELL rows (numpy idx, val, x) where a Gram kernel can go wrong. Each
+    row has distinct ids in random order (not sorted) in its first 3/4
+    entries and pads (idx 0, val 0) after them; then, by ``kind``:
+    all_pads — every even row is pads only; col0_beside_pads — each row's
+    first entry is a real column 0; shuffled — nothing more; id_thrice —
+    column 1 stands three times in every row, at random places."""
+    rng = np.random.default_rng(seed)
+    nnz = max(4, 3 * w // 4)
+    idx = np.zeros((sb, w), np.int32)
+    val = np.zeros((sb, w), np.float32)
+    for r in range(sb):
+        idx[r, :nnz] = 2 + rng.choice(n - 2, size=nnz, replace=False)
+        val[r, :nnz] = rng.standard_normal(nnz) / math.sqrt(nnz)
+        if kind == "col0_beside_pads":
+            idx[r, 0] = 0
+        elif kind == "id_thrice":
+            idx[r, rng.choice(nnz, size=3, replace=False)] = 1
+        elif kind == "all_pads" and r % 2 == 0:
+            idx[r], val[r] = 0, 0.0
+    return idx, val, rng.standard_normal(n).astype(np.float32)
+
+
 def random_bundle(sb: int, w: int, n: int, seed: int, device, unique: bool = False):
     """Random ELL rows: with a repeated column id in every row, or (unique)
     with distinct ids a row, as every registered dataset has."""
@@ -193,65 +232,60 @@ def random_bundle(sb: int, w: int, n: int, seed: int, device, unique: bool = Fal
             torch.from_numpy(x).to(device))
 
 
-def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got − ref| over max |ref|."""
-    return float((got - ref).abs().max() / ref.abs().max())
+def ab_times(old_source: pathlib.Path, shapes: dict, gram_fn, build) -> dict:
+    """``--ab OLD.cu``: an earlier ``ell_gram.cu`` whose C entry point
+    takes no geometry (idx, val, x, G, v, sb, w, bf16, stream), built
+    beside this one and timed in turns with it — old, new, new, old — at
+    each timed shape and mode, on the same inputs. Device ms of each turn."""
+    import ctypes
+
+    out = build.build_dir() / "ab_ell_gram_old.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(old_source)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    lib.ell_gram_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ell_gram_launch.restype = ctypes.c_int
+
+    def old(idx, val, x, precision):
+        sb, w = val.shape
+        g = torch.empty((sb, sb), dtype=torch.float32, device=val.device)
+        v = torch.empty((sb,), dtype=torch.float32, device=val.device)
+        rc = lib.ell_gram_launch(idx.data_ptr(), val.data_ptr(), x.data_ptr(), g.data_ptr(), v.data_ptr(), sb, w,
+                                 int(precision == "bf16"), torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the --ab kernel did not launch: CUDA error {rc}")
+        return g, v
+
+    result = {}
+    for label, (sb, _, _, bundle, per_pass, x_in, n_cols) in shapes.items():
+        for mode in ("fp32", "bf16"):
+            runs = {"old": lambda k: old(*bundle(k), x_in, mode),
+                    "new": lambda k: gram_fn(*bundle(k), x_in, n=n_cols, precision=mode)}
+            for got, want in zip(runs["old"](0), runs["new"](0)):  # the same function
+                max_abs, _, ok = errors(got, want, GV_TOL)
+                check(ok, f"--ab: the two kernels disagree at {label} {mode}: max abs {max_abs}")
+            turns = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                turns[who].append(device_ms(runs[who], inner=per_pass))
+            old_ms, new_ms = statistics.mean(turns["old"]), statistics.mean(turns["new"])
+            result[f"{label}.{mode}"] = {"old_ms": turns["old"], "new_ms": turns["new"]}
+            log(f"[ab] ell_gram {mode} {label} (sb = {sb}, w = {int(bundle(0)[0].shape[1])}): earlier kernel "
+                f"{old_ms:.4f} ms, this one {new_ms:.4f} ms on the device ({old_ms / new_ms:.2f}×; turns old "
+                f"{turns['old'][0]:.4f}, new {turns['new'][0]:.4f}, new {turns['new'][1]:.4f}, old {turns['old'][1]:.4f})")
+    return result
 
 
-def main() -> None:
-    # ---- phase 1: device ------------------------------------------------
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: FAILED — torch.cuda.is_available() is False; this run needs a GPU")
-    device = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    check(bool(smi), "nvidia-smi printed nothing")
-    log(f"[device] {smi}")
-    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    from repro_torch.core import engine
-    from repro_torch.core.comm import time_phase
-    from repro_torch.core.engine import (
-        ParallelSGDSchedule, engine_comm_ledger, engine_phase_probes, run_engine_chunk, run_parallel_sgd,
-    )
-    from repro_torch.core.teams import stack_row_teams
-    from repro_torch.kernels import _build
+def check_gram(device, err: dict, grid, edge_shapes) -> tuple[float, int]:
+    """Phase 3 for ell_gram: each mode of the kernel against its plain
+    version and the dense oracle on random bundles of each (sb, w, n) of
+    ``grid`` (rows that repeat an id, and rows that do not), and on the
+    ``EDGE_KINDS`` at each shape of ``edge_shapes``; two launches on rows
+    with distinct ids must be bitwise equal. Keeps the worst error of each
+    mode in ``err``; returns the worst bf16 error on rows that repeat an id
+    and the number of bitwise checks."""
     from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
-    from repro_torch.kernels.ref import densify_bundle_ref, ell_gram_and_v_ref
-    from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
-    from repro_torch.sparse.ell import EllBlock, ell_rmatvec
-    from repro_torch.sparse.synthetic import make_dataset
+    from repro_torch.kernels.ref import ell_gram_and_v_ref
 
-    # ---- phase 2: build -------------------------------------------------
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    build_s = time.perf_counter() - t0
-    log(f"[build] {len(libs)} kernels with {_build.find_nvcc()} in {build_s:.1f} s → {_build.build_dir()}")
-
-    t0 = time.perf_counter()
-    ds = make_dataset(DATASET, seed=0)
-    tp = stack_row_teams(ds.A, ds.y, P_R, row_multiple=S * B)  # device=None: the card
-    log(f"[main] {DATASET}: m = {ds.A.m}, n = {ds.A.n}, nnz/row = {ds.A.zbar:.1f}; teams {tuple(tp.indices.shape)} "
-        f"on {tp.values.device} ({time.perf_counter() - t0:.1f} s to generate and stack)")
-    check(tp.values.is_cuda and tp.values.dtype == torch.float32, "the problem is not float32 on the card")
-
-    def zero_counts() -> None:
-        ell_gram_and_v.launches.update(fp32=0, bf16=0)
-        sstep_inner.launches.update(fp32=0, bf16=0)
-
-    def counts() -> dict:
-        return {f"{name}.{mode}": fn.launches[mode]
-                for name, fn in (("ell_gram", ell_gram_and_v), ("sstep_inner", sstep_inner))
-                for mode in ("fp32", "bf16")}
-
-    # ---- phase 3: each kernel against its plain version, on the card ----
-    # worst max abs error against the plain version, by (kernel, mode); the
-    # bf16 Gram on rows with repeated ids is kept apart (its own tolerance)
-    err = {"ell_gram.fp32": 0.0, "ell_gram.bf16": 0.0, "sstep_inner.fp32": 0.0, "sstep_inner.bf16": 0.0}
     gram16_dup_err = 0.0
-    grid = [(8, 1, 10), (64, 24, 1999), (128, 111, 47236), (512, 111, 47236), (128, 540, 1355191)]
     for case, (sb, w, n) in enumerate(grid):
         idx, val, x = random_bundle(sb, w, n, 100 + case, device)
         g, v = ell_gram_and_v(idx, val, x, n=n)
@@ -295,6 +329,122 @@ def main() -> None:
         log(f"[kernels] ell_gram    bf16 (sb, w, n) = {(sb, w, n)}: max abs err {worst16:.3g} on distinct ids (tol {GV_TOL}), "
             f"{dup:.3g} on repeated ids (tol {BF16_DUP_TOL})")
 
+    # the Gram kernel's edge cases, in both modes, against its plain version
+    # and the dense oracle; on distinct-id rows two launches are bitwise equal
+    bitwise = 0
+    for case, (kind, (sb, w, n)) in enumerate(
+            (k, shape) for k in EDGE_KINDS for shape in edge_shapes):
+        idx, val, x = (torch.from_numpy(a).to(device) for a in edge_bundle(kind, sb, w, n, 400 + case))
+        repeats = kind == "id_thrice"
+        og, ov = ell_gram_and_v_ref(idx, val, x, n)
+        for mode in ("fp32", "bf16"):
+            g, v = ell_gram_and_v(idx, val, x, n=n, precision=mode)
+            pg, pv = ell_gram_and_v_blocked(idx, val, x, n=n, bk=512, precision=mode)
+            sync()
+            what = f"ell_gram {mode} {kind} at {(sb, w, n)}"
+            check(bool(torch.all(torch.triu(g) == 0)), f"{what}: triu(G) != 0")
+            if kind == "all_pads":
+                check(bool(torch.all(g[0::2] == 0) and torch.all(g[:, 0::2] == 0) and torch.all(v[0::2] == 0)),
+                      f"{what}: an all-pad row has a nonzero G or v entry")
+            tol = BF16_DUP_TOL if mode == "bf16" and repeats else GV_TOL
+            oracle_tol = GV_TOL if mode == "fp32" else BF16_DUP_TOL  # the oracle is fp32
+            worst = 0.0
+            for got, want, name, t in ((g, pg, "G~plain", tol), (v, pv, "v~plain", tol),
+                                       (g, og, "G~dense", oracle_tol), (v, ov, "v~dense", oracle_tol)):
+                max_abs, max_rel, ok = errors(got, want, t)
+                check(ok and math.isfinite(max_abs), f"{what} {name}: max abs {max_abs}, max rel {max_rel} (tol {t})")
+                if "plain" in name:
+                    worst = max(worst, max_abs)
+            if mode == "bf16" and repeats:
+                gram16_dup_err = max(gram16_dup_err, worst)
+            else:
+                err[f"ell_gram.{mode}"] = max(err[f"ell_gram.{mode}"], worst)
+            if not repeats:
+                g2, v2 = ell_gram_and_v(idx, val, x, n=n, precision=mode)
+                sync()
+                check(torch.equal(g, g2) and torch.equal(v, v2), f"{what}: two launches differ")
+                bitwise += 1
+            log(f"[kernels] ell_gram    {mode} {kind:16s} (sb, w, n) = {(sb, w, n)}: max abs err {worst:.3g} against "
+                f"the plain version (tol {tol})" + ("" if repeats else ", a second launch bitwise equal"))
+
+    return gram16_dup_err, bitwise
+
+
+def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got − ref| over max |ref|."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def main() -> None:
+    # ---- phase 1: device ------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: FAILED — torch.cuda.is_available() is False; this run needs a GPU")
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    check(bool(smi), "nvidia-smi printed nothing")
+    log(f"[device] {smi}")
+    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    from repro_torch.core import engine
+    from repro_torch.core.comm import time_phase
+    from repro_torch.core.engine import (
+        ParallelSGDSchedule, engine_comm_ledger, engine_phase_probes, run_engine_chunk, run_parallel_sgd,
+    )
+    from repro_torch.core.teams import stack_row_teams
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ell_gram import MAX_CHUNK, ell_gram_and_v, ell_gram_and_v_blocked
+    from repro_torch.kernels.ref import densify_bundle_ref, ell_gram_and_v_ref
+    from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
+    from repro_torch.sparse.ell import EllBlock, ell_rmatvec
+    from repro_torch.sparse.synthetic import make_dataset
+
+    # ---- phase 2: build -------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[build] {len(libs)} kernels with {_build.find_nvcc()} in {build_s:.1f} s → {_build.build_dir()}")
+    # ptxas' report of every kernel instantiation: registers, and no spills
+    for name in libs:
+        report = _build.build_log(name)
+        kernels_seen = re.findall(r"Function properties for (\S+)", report)
+        spills = [tuple(map(int, m)) for m in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+        for line in report.splitlines():
+            if "spill" in line or "registers" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+        check(len(kernels_seen) == len(spills) == 2, f"ptxas reported {len(kernels_seen)} kernels of {name}, expected 2")
+        check(all(s == (0, 0) for s in spills), f"a kernel of {name} spills registers: {spills}")
+
+    t0 = time.perf_counter()
+    ds = make_dataset(DATASET, seed=0)
+    tp = stack_row_teams(ds.A, ds.y, P_R, row_multiple=S * B)  # device=None: the card
+    log(f"[main] {DATASET}: m = {ds.A.m}, n = {ds.A.n}, nnz/row = {ds.A.zbar:.1f}; teams {tuple(tp.indices.shape)} "
+        f"on {tp.values.device} ({time.perf_counter() - t0:.1f} s to generate and stack)")
+    check(tp.values.is_cuda and tp.values.dtype == torch.float32, "the problem is not float32 on the card")
+
+    def zero_counts() -> None:
+        ell_gram_and_v.launches.update(fp32=0, bf16=0)
+        sstep_inner.launches.update(fp32=0, bf16=0)
+
+    def counts() -> dict:
+        return {f"{name}.{mode}": fn.launches[mode]
+                for name, fn in (("ell_gram", ell_gram_and_v), ("sstep_inner", sstep_inner))
+                for mode in ("fp32", "bf16")}
+
+    # ---- phase 3: each kernel against its plain version, on the card ----
+    # worst max abs error against the plain version, by (kernel, mode); the
+    # bf16 Gram on rows with repeated ids is kept apart (its own tolerance)
+    err = {"ell_gram.fp32": 0.0, "ell_gram.bf16": 0.0, "sstep_inner.fp32": 0.0, "sstep_inner.bf16": 0.0}
+    gram_grid = [(8, 1, 10), (64, 24, 1999), (128, 111, 47236), (512, 111, 47236), (128, 540, NEWS20_N),
+                 (8, MAX_CHUNK + 1, 5000),  # one entry over a chunk: two tables a row
+                 (32, 3 * MAX_CHUNK + 100, 50000),  # four chunks a row
+                 (128, 2000, 2000),  # epsilon's dense rows (the distinct-id bundle)
+                 (8, 13100, 3145728)]  # synthetic_uniform's width and columns
+    edge_shapes = ((64, 111, 47236), (16, MAX_CHUNK + 88, 20000))  # one chunk a row, and two
+    gram16_dup_err, bitwise = check_gram(device, err, gram_grid, edge_shapes)
+
     for case, (s, b) in enumerate([(1, 8), (4, 32), (8, 16), (16, 32)]):
         for eta in (0.05, 1.0):
             rng = np.random.default_rng(200 + case)
@@ -319,7 +469,10 @@ def main() -> None:
         out = {}
         for mode in ("fp32", "bf16"):
             g, v = ell_gram_and_v(idx, val, x_real, n=tp.n, precision=mode)
+            g2, v2 = ell_gram_and_v(idx, val, x_real, n=tp.n, precision=mode)
             check(bool(torch.all(torch.triu(g) == 0)), f"ell_gram {mode}: triu(G) != 0 on {DATASET} rows")
+            check(torch.equal(g, g2) and torch.equal(v, v2), f"ell_gram {mode}: two launches differ on {DATASET} rows")
+            bitwise += 1
             pg, pv = ell_gram_and_v_blocked(idx, val, x_real, n=tp.n, bk=512, precision=mode)
             check(float(pg.abs().max()) > 0, f"the {DATASET} bundle has an empty Gram matrix")
             for got, want, name in ((g, pg, "G"), (v, pv, "v")):
@@ -344,7 +497,7 @@ def main() -> None:
         check(0.0 < dev_g < BF16_REL and 0.0 < dev_v < BF16_REL, f"ell_gram bf16 against fp32: {dev_g}, {dev_v}")
         check(0.0 < du < BF16_DU, f"sstep_inner bf16 against fp32: {du}")
     log(f"[kernels] both kernels on {DATASET} bundles (team 0 first rows, team {P_R - 1} last rows): worst so far "
-        + ", ".join(f"{k} {e:.3g}" for k, e in err.items()))
+        + ", ".join(f"{k} {e:.3g}" for k, e in err.items()) + f"; {bitwise} two-launch checks of ell_gram bitwise equal")
 
     # ---- phase 4: the main path at full width ---------------------------
     sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=1)
@@ -520,50 +673,62 @@ def main() -> None:
         f"(the simulated engine's Allreduce is the identity)")
 
     team_idx, team_val = tp.indices[0], tp.values[0]
-    rows_local = tp.rows_local
-    w = int(team_idx.shape[1])
     x_now = x_kernel
+
+    def team_bundles(sb: int):
+        """bundle(k) cycling over team 0's sb-row bundles, and their number"""
+        offsets = list(range(0, tp.rows_local - sb + 1, sb))
+        return (lambda k: (team_idx[offsets[k % len(offsets)]:][:sb], team_val[offsets[k % len(offsets)]:][:sb]),
+                len(offsets))
+
+    # news20's width (540) and columns, distinct ids a row: one bundle
+    news_idx, news_val, news_x = random_bundle(128, 540, NEWS20_N, 500, device, unique=True)
+    # label: (sb, s, b, bundle(k), bundles a timed pass, x, n) — the main
+    # path's bundle, one four times as tall, and news20's width; the
+    # corrections are timed at the first two (their time does not depend on w)
+    shapes = {"sb128": (S * B, S, B, *team_bundles(S * B), x_now, tp.n),
+              "sb512": (512, 16, 32, *team_bundles(512), x_now, tp.n),
+              "w540": (128, None, None, lambda k: (news_idx, news_val), 8, news_x, NEWS20_N)}
     report = {}
-    for sb, s, b in ((S * B, S, B), (512, 16, 32)):
-        offsets = list(range(0, rows_local - sb + 1, sb))
-
-        def bundle(k):
-            r0 = offsets[k % len(offsets)]
-            return team_idx[r0 : r0 + sb], team_val[r0 : r0 + sb]
-
+    for label, (sb, s, b, bundle, per_pass, x_in, n_cols) in shapes.items():
         # bounds from this run's inputs (bundle 0): bytes each read or written
         # once over the memory rate, against the operations that (G, v) needs
         # over the peak rate for the mode's type (FP32 outside the tensor
         # cores; bf16 dense): one multiply-add per pair of nonzeros of rows
         # i > j that share a column id, one per nonzero for v. The kernel's
-        # design compares every pair of nonzeros of every row pair; that count
-        # is printed beside the bound, not as it.
+        # own work is a table lookup per nonzero of row i and row j < i; that
+        # count, at one lookup per FP32 lane and cycle, is printed beside the
+        # bound (design_ops_ms), not as it.
         bi, bv = bundle(0)
+        w = int(bi.shape[1])
         nnz = (bv != 0).sum(dim=1).double()
         gram_bytes = bi.numel() * 8 + int(torch.unique(bi).numel()) * 4 + sb * sb * 4 + sb * 4
-        gram_flop = 2.0 * matching_pairs(bi, bv, tp.n) + 2.0 * float(nnz.sum())
-        design_compares = float((nnz.sum() ** 2 - (nnz ** 2).sum()) / 2)  # Σ_{i>j} nnz_i·nnz_j
-        gram_design_ms = design_compares / FP32_FLOP_PER_S * 1e3  # at one compare per FP32 lane and cycle
-        tri = b * b * s * (s - 1) // 2  # entries of G's strict lower block triangle
-        inner_bytes = tri * 4 + 2 * sb * 4
-        inner_flop = 2.0 * tri + 8.0 * sb
-        report[sb] = {}
+        gram_flop = 2.0 * matching_pairs(bi, bv, n_cols) + 2.0 * float(nnz.sum())
+        gram_design_ms = gram_probes(bv) / FP32_FLOP_PER_S * 1e3
+        report[label] = {}
         for mode, flop_rate in (("fp32", FP32_FLOP_PER_S), ("bf16", BF16_FLOP_PER_S)):
             def gram(k):
-                return ell_gram_and_v(*bundle(k), x_now, n=tp.n, precision=mode)
+                return ell_gram_and_v(*bundle(k), x_in, n=n_cols, precision=mode)
 
-            gram_ms = device_ms(gram, inner=len(offsets))  # one pass over the team's bundles
+            gram_ms = device_ms(gram, inner=per_pass)  # one pass over the bundles
             gram_eager_ms = eager_ms(gram, inner=10)
-            gram_plain_ms = eager_ms(lambda k: ell_gram_and_v_blocked(*bundle(k), x_now, n=tp.n, bk=512, precision=mode),
-                                     inner=1, warmup=1)
+            gram_plain_ms = eager_ms(lambda k: ell_gram_and_v_blocked(*bundle(k), x_in, n=n_cols, bk=512, precision=mode),
+                                     inner=1, warmup=1, reps=20 if n_cols < 10**6 else 5)
             wire = torch.float32 if mode == "fp32" else torch.bfloat16
 
             def library(k):
-                dense = densify_bundle_ref(*bundle(k), tp.n).to(wire)
-                return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_now.to(wire)
+                dense = densify_bundle_ref(*bundle(k), n_cols).to(wire)
+                return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_in.to(wire)
 
             gram_lib_ms = eager_ms(library, inner=2)
-            g, v = ell_gram_and_v(*bundle(0), x_now, n=tp.n)
+            report[label][f"ell_gram.{mode}"] = dict(
+                ms=gram_ms, eager_ms=gram_eager_ms, plain_ms=gram_plain_ms, library_ms=gram_lib_ms,
+                bound={"bytes": gram_bytes / HBM_BYTES_PER_S * 1e3, "operations": gram_flop / flop_rate * 1e3},
+                design_ops_ms=gram_design_ms)
+            if s is None:
+                continue
+            g, v = ell_gram_and_v(*bundle(0), x_in, n=n_cols)
+            tri = b * b * s * (s - 1) // 2  # entries of G's strict lower block triangle
 
             def corrections(k):
                 return sstep_inner(g, v, s, b, ETA, precision=mode)
@@ -571,22 +736,23 @@ def main() -> None:
             inner_ms = device_ms(corrections, inner=20)
             inner_eager_ms = eager_ms(corrections, inner=10)
             inner_plain_ms = eager_ms(lambda k: sstep_inner_ref(g, v, s, b, ETA, precision=mode), inner=1, warmup=1)
-            report[sb][f"ell_gram.{mode}"] = dict(
-                ms=gram_ms, eager_ms=gram_eager_ms, plain_ms=gram_plain_ms, library_ms=gram_lib_ms,
-                bound={"bytes": gram_bytes / HBM_BYTES_PER_S * 1e3, "operations": gram_flop / flop_rate * 1e3},
-                design_ops_ms=gram_design_ms)
-            report[sb][f"sstep_inner.{mode}"] = dict(
+            report[label][f"sstep_inner.{mode}"] = dict(
                 ms=inner_ms, eager_ms=inner_eager_ms, plain_ms=inner_plain_ms, library_ms=None,
-                bound={"bytes": inner_bytes / HBM_BYTES_PER_S * 1e3, "operations": inner_flop / flop_rate * 1e3},
+                bound={"bytes": (tri * 4 + 2 * sb * 4) / HBM_BYTES_PER_S * 1e3,
+                       "operations": (2.0 * tri + 8.0 * sb) / flop_rate * 1e3},
                 design_ops_ms=None)
-        for name, row in report[sb].items():
+        for name, row in report[label].items():
             by = max(row["bound"], key=row["bound"].get)
             row["bound_ms"], row["bound_by"] = row["bound"][by], by
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-            log(f"[times] {name:16s} sb = {sb:3d} (s = {s}, b = {b}, w = {w}, n = {tp.n}): kernel {row['ms']:.4f} ms on the "
+            log(f"[times] {name:16s} sb = {sb:3d} (s = {s}, b = {b}, w = {w}, n = {n_cols}): kernel {row['ms']:.4f} ms on the "
                 f"device ({row['eager_ms']:.4f} ms a call from Python), plain {row['plain_ms']:.4f} ms, library {library}, "
                 f"bound {row['bound_ms']:.6f} ms by {by} (bytes {row['bound']['bytes']:.3g}, operations {row['bound']['operations']:.3g})"
-                + ("" if row["design_ops_ms"] is None else f", the design's compares alone {row['design_ops_ms']:.3g} ms"))
+                + ("" if row["design_ops_ms"] is None else f", the design's lookups alone {row['design_ops_ms']:.3g} ms"))
+
+    ab = None
+    if "--ab" in sys.argv[1:]:
+        ab = ab_times(ROOT / sys.argv[sys.argv.index("--ab") + 1], shapes, ell_gram_and_v, _build)
 
     # the Yᵀu scatter-add of one main-path bundle (PyTorch's index_add_, no
     # kernel of the port)
@@ -609,7 +775,7 @@ def main() -> None:
     kernels = []
     for key, (path, path_counts) in paths.items():
         name, mode = key.split(".")
-        row, wide = report[S * B][key], report[512][key]
+        row = report["sb128"][key]
         kernels.append({
             "name": name if mode == "fp32" else f"{name}_bf16", "precision": mode, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -620,8 +786,8 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
             "design_ops_ms": row["design_ops_ms"],
-            "shape": {"sb": S * B, "w": w, "n": tp.n},
-            "sb512": {k: wide[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "design_ops_ms")},
+            "shape": {"sb": S * B, "w": int(team_idx.shape[1]), "n": tp.n},
+            **{label: {k: report[label][key][k] for k in TIMED_KEYS} for label in ("sb512", "w540") if key in report[label]},
         })
         if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
             kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
@@ -631,7 +797,7 @@ def main() -> None:
                       "x_max": x_max, "identity_gap": gap, "skew_gap": skew_gap, "skew_identity_gap": skew_identity_gap,
                       "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
                       "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
-                      "ledger_delay2_bf16": led16.to_dict()}), flush=True)
+                      "ledger_delay2_bf16": led16.to_dict(), "ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

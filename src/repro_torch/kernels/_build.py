@@ -5,10 +5,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one
 shared library, compiled with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v
 
-into ``build/repro_torch_kernels/`` at the root of the checkout. The
-file name carries a
+into ``build/repro_torch_kernels/`` at the root of the checkout, with
+the compiler's output (ptxas' registers, shared memory and spills of
+each kernel) beside it in ``<library>.log``. The file name carries a
 hash of the source and of the flags, so an edit rebuilds and an
 unchanged source is loaded as it is. Nothing is compiled on import;
 ``build_all`` starts one ``nvcc`` per source, all together. A missing
@@ -28,7 +29,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("ell_gram", "sstep_inner")
 
@@ -78,6 +79,7 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: pathlib.Path, out: pat
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {source_path(name)} (exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -97,6 +99,12 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, pathlib.Path]:
     if errors:
         raise errors[0]
     return outs
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built ``csrc/<name>.cu`` (after
+    ``build_all``): ptxas' lines for each kernel instantiation."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -16,9 +16,15 @@ Two versions of the same function live here:
   the kernel's arithmetic panel by panel and is the oracle for it; it
   is not a yardstick of speed.
 
-The CUDA kernel does not walk panels (see its header note), so ``bk``
-and ``bm`` have no effect on it; they only define the plain version's
-walk. Any ``bk``/``bm`` gives the same result up to summation order.
+The CUDA kernel does not walk panels: each block of it owns a square
+tile of G, hashes its j-rows' entries into open-addressing tables in
+shared memory and looks its i-rows' entries up in them (see its header
+note). ``bk`` and ``bm`` have no effect on it; they only define the
+plain version's walk. Any ``bk``/``bm`` gives the same result up to
+summation order. ``gram_geometry`` computes the kernel's launch
+geometry — tile, threads a pair, chunk of a row's entries, table
+capacity and dynamic shared memory — from (sb, w), on the host, where
+the CPU tests reach it.
 
 Pads are (idx 0, val 0) and contribute nothing. Accumulation is
 float32 (float64 inputs stay float64 in the plain version; the kernel
@@ -29,13 +35,17 @@ Precision. ``precision="bf16"`` is the reference's
 entry) and x are rounded to bf16, the products are accumulated in
 float32, and G and v stay float32. The plain version builds each panel
 in float32, rounds it to bf16 and rounds x to bf16, then takes float32
-dots — a product of two bf16 values is exact in float32, so it differs
-from the reference only in the order of the sums. The CUDA kernel
-rounds each stored entry as it is staged and does not merge duplicate
-column ids of a row: where a row repeats an id, the reference and the
-plain version round the sum once and the kernel rounds each part, a
-difference of up to one bf16 rounding (relative 2⁻⁸) of that entry. No
-registered dataset and no generator row repeats an id.
+dots — a product of two bf16 values is exact in float32, so on rows
+with distinct ids it differs from the reference only in the order of
+the sums. (Where a row repeats an id, the reference rounds each entry
+and then their sum, the plain version the sum alone.) The CUDA kernel
+rounds each j-row's table value once after the row's repeated ids are
+merged into it (as the plain version rounds its panel entry) and each
+i-row entry on its own as it is staged: where an i-row repeats an id
+(or a j-row repeats one across two chunks of a row wider than one
+chunk), the plain version rounds the sum once and the kernel the
+parts, a difference of up to one bf16 rounding (relative 2⁻⁸) of that
+entry. No registered dataset and no generator row repeats an id.
 
 Meta tensors (the comm ledger's structural capture) get outputs of the
 right shape and dtype and no arithmetic.
@@ -46,6 +56,7 @@ Oracle: ``repro_torch.kernels.ref.ell_gram_and_v_ref`` (dense scatter).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -58,12 +69,74 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = _build.load_library("ell_gram")
-        lib.ell_gram_launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        lib.ell_gram_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.ell_gram_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+MAX_CHUNK = 512  # entries of a row hashed into one table (j) or staged at once (i)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on sm_90
+# Below this many blocks (two on each of an H100's 132 SMs) a bundle is cut
+# into 8 × 8 tiles with 8 threads a pair, for more blocks and more threads to
+# hide shared-memory latency; from it on into 16 × 16 tiles with 2 threads a
+# pair, which build each j-row's table half as often.
+FILL_BLOCKS = 264
+# A table has at least twice a chunk's slots (load factor ≤ ½), and four
+# times up to this many: most lookups then end in their home bucket.
+TABLE_SLOTS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class GramGeometry:
+    """The CUDA kernel's launch: one block of ``threads`` = tile²·ks
+    threads for each of the tiles·(tiles + 1)/2 tiles of G on or below
+    the diagonal; each row is walked in ⌈w/chunk⌉ chunks of at most
+    ``chunk`` entries, a j-chunk hashed into a table of ``cap`` slots;
+    ``smem_bytes`` of dynamic shared memory a block."""
+
+    tile: int
+    ks: int
+    chunk: int
+    cap: int
+    tiles: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def cap_log2(self) -> int:
+        return self.cap.bit_length() - 1
+
+
+def gram_geometry(sb: int, w: int) -> GramGeometry:
+    """Launch geometry of the CUDA kernel for an (sb, w) bundle. The tile
+    and the threads a pair follow from the number of blocks (see
+    ``FILL_BLOCKS``); either way a block has 512 threads, the kernel's
+    bound. The row is cut into the fewest chunks
+    of at most ``MAX_CHUNK`` entries, of equal size but the last, whose
+    tables fit; a table has a power of two of slots, at least twice a
+    chunk and four times up to ``TABLE_SLOTS``. Shared memory holds, per
+    block, ``tile`` tables of cap + 4 keys and values, ``tile`` staged
+    i-rows and ``tile`` staged j-rows of ``chunk`` ids and values, the
+    i-rows' counts and v sums, and the ks partial sums of each pair — the
+    layout the kernel carves."""
+    if sb < 1 or w < 1:
+        raise ValueError(f"empty bundle (sb={sb}, w={w})")
+    tiles16 = -(-sb // 16)
+    tile, ks = (16, 2) if tiles16 * (tiles16 + 1) // 2 >= FILL_BLOCKS else (8, 8)
+
+    def layout(n_chunks: int) -> tuple[int, int, int]:
+        chunk = -(-w // n_chunks)
+        cap = max(8, 1 << (2 * chunk - 1).bit_length(),
+                  min(TABLE_SLOTS, 1 << (4 * chunk - 1).bit_length()))
+        return chunk, cap, 4 * (2 * tile * (cap + 4) + 4 * tile * chunk + 2 * tile + ks * tile * tile)
+
+    n_chunks = -(-w // MAX_CHUNK)
+    while layout(n_chunks)[2] > SMEM_LIMIT:  # a chunk of one entry always fits
+        n_chunks += 1
+    chunk, cap, smem = layout(n_chunks)
+    return GramGeometry(tile=tile, ks=ks, chunk=chunk, cap=cap, tiles=-(-sb // tile),
+                        threads=tile * tile * ks, smem_bytes=smem)
 
 
 PRECISIONS = ("fp32", "bf16")
@@ -195,18 +268,18 @@ def ell_gram_and_v(
     if not (indices.is_contiguous() and values.is_contiguous() and x.is_contiguous()):
         raise ValueError("indices, values and x must be contiguous")
 
-    lib = _lib()
+    geo = gram_geometry(sb, w)
     g = torch.empty((sb, sb), dtype=torch.float32, device=values.device)
     v = torch.empty((sb,), dtype=torch.float32, device=values.device)
     with torch.cuda.device(values.device):
-        rc = lib.ell_gram_launch(
+        rc = _lib().ell_gram_launch(
             indices.data_ptr(), values.data_ptr(), x.data_ptr(), g.data_ptr(),
-            v.data_ptr(), sb, w, int(precision == "bf16"),
-            torch.cuda.current_stream().cuda_stream,
+            v.data_ptr(), sb, w, int(precision == "bf16"), geo.tile, geo.ks, geo.chunk,
+            geo.cap_log2, geo.smem_bytes, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"ell_gram kernel launch failed: CUDA error {rc} (sb={sb}, w={w}, {precision})"
+            f"ell_gram kernel launch failed: CUDA error {rc} (sb={sb}, w={w}, {precision}, {geo})"
         )
     ell_gram_and_v.launches[precision] += 1
     return g, v

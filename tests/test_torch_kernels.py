@@ -4,6 +4,10 @@ them; the port's wrappers get CPU tensors and therefore run their plain
 PyTorch versions (the CUDA kernels themselves are held against these
 plain versions on the GPU by ``chip_smoke.py``)."""
 
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -214,3 +218,85 @@ def test_inner_corrections_match_reference(name, l2):
         tengine.inner_corrections_loop(tg, tv, s, b, eta, obj).numpy(), want, **U_TOL)
     if name == "logistic" and l2 == 0.0:
         assert torch.equal(got, sstep_inner_ref(tg, tv, s, b, eta))
+
+
+# ---- the CUDA Gram kernel's launch geometry and edge cases ------------------
+
+
+@functools.cache
+def _load_chip_smoke():
+    """``chip_smoke.py`` at the repo root, for its edge-case bundles (it
+    imports torch and numpy only; nothing runs on import)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("w", [1, 111, 129, 164, 540, 2000, 13100])
+@pytest.mark.parametrize("sb", [8, 128, 512, 1024])
+def test_gram_geometry_covers_every_width(sb, w):
+    """Tiles cover sb rows and chunks cover w entries, each chunk no
+    wider than MAX_CHUNK, in the fewest chunks that fit; a table has a
+    power of two of slots, at least twice a chunk (four times up to
+    TABLE_SLOTS) and less than eight times; the shared memory is the kernel's layout and fits an
+    sm_90 block; few blocks get small tiles."""
+    geo = tgram.gram_geometry(sb, w)
+    assert (geo.tiles - 1) * geo.tile < sb <= geo.tiles * geo.tile
+    assert geo.tile == (16 if geo.tiles * (geo.tiles + 1) // 2 >= tgram.FILL_BLOCKS else 8)
+    n_chunks = -(-w // geo.chunk)
+    assert n_chunks >= -(-w // tgram.MAX_CHUNK) and geo.chunk <= min(w, tgram.MAX_CHUNK)
+    assert (n_chunks - 1) * geo.chunk < w <= n_chunks * geo.chunk
+    assert geo.cap == 1 << geo.cap_log2 and geo.cap >= 8 and 2 * geo.chunk <= geo.cap
+    assert 4 * geo.chunk <= geo.cap or geo.cap >= tgram.TABLE_SLOTS
+    assert geo.cap == 8 or geo.cap < 8 * geo.chunk
+    assert geo.threads == geo.tile ** 2 * geo.ks == 512  # the kernel's __launch_bounds__
+    layout = 2 * geo.tile * (geo.cap + 4) + 4 * geo.tile * geo.chunk + 2 * geo.tile + geo.ks * geo.tile ** 2
+    assert geo.smem_bytes == 4 * layout <= tgram.SMEM_LIMIT == 232_448
+    if n_chunks > -(-w // tgram.MAX_CHUNK):  # one chunk fewer would not fit
+        wider = -(-w // (n_chunks - 1))
+        cap = max(1 << (2 * wider - 1).bit_length(), min(tgram.TABLE_SLOTS, 1 << (4 * wider - 1).bit_length()))
+        assert 4 * (layout - 2 * geo.tile * (geo.cap - cap) + 4 * geo.tile * (wider - geo.chunk)) > tgram.SMEM_LIMIT
+
+
+def test_gram_geometry_refuses_an_empty_bundle():
+    for sb, w in ((0, 111), (128, 0)):
+        with pytest.raises(ValueError, match="empty"):
+            tgram.gram_geometry(sb, w)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 111, 2000), (8, tgram.MAX_CHUNK + 88, 2000)], ids=["one-chunk", "two-chunks"])
+@pytest.mark.parametrize("kind", ["all_pads", "col0_beside_pads", "shuffled", "id_thrice"])
+def test_ell_gram_edge_cases_match_reference(kind, shape, precision):
+    """``chip_smoke.py``'s edge-case bundles (all-pad rows, a real column
+    0 beside pads, ids in random order, an id three times in every row),
+    at one chunk a row and at two: the plain version (and the wrapper on
+    CPU tensors) against the reference's Pallas kernel (interpret) in the
+    same mode at GV_TOL — at 2e-2 in bf16 where a row repeats an id: the
+    reference rounds each of its entries to bf16 and then their sum, the
+    plain version the sum alone — and against the dense fp32 oracles, at
+    GV_TOL in fp32 and at 2e-2 in bf16."""
+    sb, w, n = shape
+    smoke = _load_chip_smoke()
+    assert kind in smoke.EDGE_KINDS
+    idx, val, x = smoke.edge_bundle(kind, sb, w, n, seed=7)
+    ji, jv, jx = jnp.asarray(idx), jnp.asarray(val), jnp.asarray(x)
+    jg, jv_ = jgram.ell_gram_and_v(ji, jv, jx, n=n, bk=512, precision=precision)
+    oracles = [jref.ell_gram_and_v_ref(ji, jv, jx, n)]
+    ti, tv, tx = torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(x)
+    oracles.append(tref.ell_gram_and_v_ref(ti, tv, tx, n))
+    bf16_tol = dict(rtol=2e-2, atol=2e-2)
+    tol = bf16_tol if precision == "bf16" and kind == "id_thrice" else GV_TOL
+    oracle_tol = GV_TOL if precision == "fp32" else bf16_tol
+    for g, v in (tgram.ell_gram_and_v_blocked(ti, tv, tx, n=n, precision=precision),
+                 tgram.ell_gram_and_v(ti, tv, tx, n=n, precision=precision)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **tol)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv_), **tol)
+        for og, ov in oracles:
+            np.testing.assert_allclose(g.numpy(), np.asarray(og), **oracle_tol)
+            np.testing.assert_allclose(v.numpy(), np.asarray(ov), **oracle_tol)
+        if kind == "all_pads":  # pads add nothing, exactly
+            assert not g[0::2].any() and not g[:, 0::2].any() and not v[0::2].any()
+    assert float(np.abs(np.asarray(jg)).max()) > 0  # the rows do share columns
