@@ -18,9 +18,15 @@ through its kernels, reads the comm ledger, times the kernels, and prints
 
 ``python3 chip_smoke.py --profile`` also traces one more run of the
 synchronous fp32 path and of the D = 2 bf16 path with ``torch.profiler`` and
-prints the device time by kernel. ``--ab OLD.cu`` (a path from the repo root)
-also builds an earlier ``ell_gram.cu`` whose C entry point takes no launch
-geometry and times it in turns with this one at each timed shape and mode.
+prints the device time by kernel. ``--ab OLD.cu`` (a path from the repo root;
+it may be given more than once) also builds an earlier kernel source and
+times it in turns with this one at each timed shape and mode: an
+``ell_gram.cu`` whose C entry point takes no launch geometry, or an
+``sstep_inner.cu`` whose entry point is ``sstep_inner_launch(G, v, u, s, b,
+eta_over_b, bf16, stream)`` — told apart by the entry point the source
+defines. ``--sweep`` also times the corrections kernel at other consumer
+block sizes at the timed shapes. Every run prints the launch floor: the
+device time of a one-element PyTorch operation in a CUDA graph.
 
 Any failed phase ends the process with a non-zero exit code; there is no
 CPU mode: without a CUDA device the script fails at once.
@@ -232,6 +238,80 @@ def random_bundle(sb: int, w: int, n: int, seed: int, device, unique: bool = Fal
             torch.from_numpy(x).to(device))
 
 
+def build_old(old_source: pathlib.Path, name: str, build):
+    """An earlier kernel source for ``--ab``, built beside this one's."""
+    import ctypes
+
+    out = build.build_dir() / f"ab_{name}_old.so"
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(old_source)],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(out))
+
+
+def ab_inner_times(old_source: pathlib.Path, inputs: dict, build) -> dict:
+    """``--ab OLD.cu`` for the corrections: an earlier ``sstep_inner.cu``
+    whose C entry point is (G, v, u, s, b, eta_over_b, bf16, stream),
+    timed in turns with this one on the same (G, v) at each timed shape
+    and mode, after both agree within U_TOL. Device ms of each turn."""
+    import ctypes
+
+    from repro_torch.kernels.sstep_inner import eta_over_b, sstep_inner
+
+    lib = build_old(old_source, "sstep_inner", build)
+    lib.sstep_inner_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                               ctypes.c_int, ctypes.c_void_p]
+    lib.sstep_inner_launch.restype = ctypes.c_int
+
+    def old(g, v, s, b, precision):
+        u = torch.empty((s * b,), dtype=torch.float32, device=g.device)
+        rc = lib.sstep_inner_launch(g.data_ptr(), v.data_ptr(), u.data_ptr(), s, b, eta_over_b(ETA, b),
+                                    int(precision == "bf16"), torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the --ab kernel did not launch: CUDA error {rc}")
+        return u
+
+    result = {}
+    for label, (s, b, g, v) in inputs.items():
+        for mode in ("fp32", "bf16"):
+            runs = {"old": lambda k: old(g, v, s, b, mode),
+                    "new": lambda k: sstep_inner(g, v, s, b, ETA, precision=mode)}
+            max_abs, _, ok = errors(runs["old"](0), runs["new"](0), U_TOL)
+            check(ok, f"--ab: the two corrections kernels disagree at {label} {mode}: max abs {max_abs}")
+            turns = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                turns[who].append(device_ms(runs[who], inner=20))
+            old_ms, new_ms = statistics.mean(turns["old"]), statistics.mean(turns["new"])
+            result[f"sstep_inner.{label}.{mode}"] = {"old_ms": turns["old"], "new_ms": turns["new"],
+                                                     "max_abs_diff": max_abs}
+            log(f"[ab] sstep_inner {mode} {label} (s = {s}, b = {b}): earlier kernel {old_ms:.5f} ms, this one "
+                f"{new_ms:.5f} ms on the device ({old_ms / new_ms:.2f}×; turns old {turns['old'][0]:.5f}, new "
+                f"{turns['new'][0]:.5f}, new {turns['new'][1]:.5f}, old {turns['old'][1]:.5f}; max |Δu| {max_abs:.3g})")
+    return result
+
+
+def sweep_inner(inputs: dict) -> dict:
+    """``--sweep``: the corrections kernel at several consumer block sizes —
+    one row a group of LANES lanes, two, and four — on the same (G, v) as
+    the timed shapes, each first held against its plain version at U_TOL.
+    Device ms by "label.mode.threads"."""
+    from repro_torch.kernels.sstep_inner import (
+        LANES, MAX_CONSUMERS, inner_geometry, sstep_inner_launch, sstep_inner_ref,
+    )
+
+    result = {}
+    for label, (s, b, g, v) in inputs.items():
+        for threads in sorted({min(MAX_CONSUMERS, max(32, b * LANES // k)) for k in (1, 2, 4)}):
+            geo = inner_geometry(s, b, threads=threads)
+            for mode in ("fp32", "bf16"):
+                max_abs, _, ok = errors(sstep_inner_launch(g, v, s, b, ETA, mode, geo),
+                                        sstep_inner_ref(g, v, s, b, ETA, precision=mode), U_TOL)
+                check(ok, f"--sweep: {geo} {mode} at {label} is off its plain version by {max_abs}")
+                ms = device_ms(lambda k: sstep_inner_launch(g, v, s, b, ETA, mode, geo), inner=20)
+                result[f"{label}.{mode}.{threads}"] = ms
+                log(f"[sweep] sstep_inner {mode} {label} (s = {s}, b = {b}): {threads:4d} consumer threads, "
+                    f"tiles of {geo.cols} columns, {geo.stages} slots: {ms:.5f} ms on the device")
+    return result
+
+
 def ab_times(old_source: pathlib.Path, shapes: dict, gram_fn, build) -> dict:
     """``--ab OLD.cu``: an earlier ``ell_gram.cu`` whose C entry point
     takes no geometry (idx, val, x, G, v, sb, w, bf16, stream), built
@@ -239,10 +319,7 @@ def ab_times(old_source: pathlib.Path, shapes: dict, gram_fn, build) -> dict:
     each timed shape and mode, on the same inputs. Device ms of each turn."""
     import ctypes
 
-    out = build.build_dir() / "ab_ell_gram_old.so"
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(old_source)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
+    lib = build_old(old_source, "ell_gram", build)
     lib.ell_gram_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.ell_gram_launch.restype = ctypes.c_int
 
@@ -445,25 +522,39 @@ def main() -> None:
     edge_shapes = ((64, 111, 47236), (16, MAX_CHUNK + 88, 20000))  # one chunk a row, and two
     gram16_dup_err, bitwise = check_gram(device, err, gram_grid, edge_shapes)
 
-    for case, (s, b) in enumerate([(1, 8), (4, 32), (8, 16), (16, 32)]):
+    # the corrections: s = 1 (no panel), a whole triangle in flight, an s·b
+    # that is not a multiple of 4 (no TMA: the producer warp's loads), rings
+    # that wrap many times up to s·b = MAX_SB (G 604 MB), and G at an address
+    # 4 bytes past a 16-byte boundary (no TMA at the main shape)
+    for case, (s, b, offset) in enumerate([(1, 8, 0), (4, 32, 0), (8, 16, 0), (16, 32, 0), (3, 7, 0), (1, 128, 0),
+                                           (4, 32, 1), (64, 32, 0), (96, 128, 0)]):
+        rng = np.random.default_rng(200 + case)
+        sb = s * b
+        y = torch.from_numpy(rng.standard_normal((sb, 200)).astype(np.float32) / math.sqrt(200)).to(device)
+        store = torch.empty(offset + sb * sb, dtype=torch.float32, device=device)
+        g = store[offset:].view(sb, sb)
+        g.copy_(torch.tril(y @ y.T, -1))
+        del y
+        v = torch.from_numpy(rng.standard_normal(sb).astype(np.float32)).to(device)
         for eta in (0.05, 1.0):
-            rng = np.random.default_rng(200 + case)
-            sb = s * b
-            y = rng.standard_normal((sb, 200)).astype(np.float32) / math.sqrt(200)
-            g = torch.from_numpy(np.tril(y @ y.T, -1).astype(np.float32)).to(device)
-            v = torch.from_numpy(rng.standard_normal(sb).astype(np.float32)).to(device)
             for mode in ("fp32", "bf16"):
                 u = sstep_inner(g, v, s, b, eta, precision=mode)
                 sync()
                 max_abs, max_rel, ok = errors(u, sstep_inner_ref(g, v, s, b, eta, precision=mode), U_TOL)
                 check(ok and math.isfinite(max_abs),
-                      f"sstep_inner {mode} at (s, b, eta) = {(s, b, eta)}: max abs {max_abs}, max rel {max_rel}")
+                      f"sstep_inner {mode} at (s, b, eta) = {(s, b, eta)}, G {4 * offset} bytes past a 16-byte "
+                      f"boundary: max abs {max_abs}, max rel {max_rel}")
                 err[f"sstep_inner.{mode}"] = max(err[f"sstep_inner.{mode}"], max_abs)
-                log(f"[kernels] sstep_inner {mode} (s, b, eta) = {(s, b, eta)}: max abs err {max_abs:.3g} (tol {U_TOL})")
+                log(f"[kernels] sstep_inner {mode} (s, b, eta) = {(s, b, eta)}"
+                    + (f", G {4 * offset} bytes past a 16-byte boundary" if offset else "")
+                    + f": max abs err {max_abs:.3g} (tol {U_TOL})")
+        del store, g
+    torch.cuda.empty_cache()
 
     # both kernels on the bundles the main path feeds them: real rows of the
     # dataset (sorted ids, a ragged padded tail) and a nonzero iterate
     x_real = torch.from_numpy(np.random.default_rng(300).standard_normal(tp.n).astype(np.float32) * 0.1).to(device)
+    inner_bitwise = 0
     for team, r0 in ((0, 0), (P_R - 1, tp.rows_local - S * B)):
         idx, val = tp.indices[team, r0 : r0 + S * B], tp.values[team, r0 : r0 + S * B]
         out = {}
@@ -481,6 +572,9 @@ def main() -> None:
                       f"ell_gram {mode} {name} on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
                 err[f"ell_gram.{mode}"] = max(err[f"ell_gram.{mode}"], max_abs)
             u = sstep_inner(pg, pv, S, B, ETA, precision=mode)
+            check(torch.equal(u, sstep_inner(pg, pv, S, B, ETA, precision=mode)),
+                  f"sstep_inner {mode}: two launches differ on {DATASET} rows")
+            inner_bitwise += 1
             max_abs, max_rel, ok = errors(u, sstep_inner_ref(pg, pv, S, B, ETA, precision=mode), U_TOL)
             check(ok and math.isfinite(max_abs), f"sstep_inner {mode} on {DATASET} rows: max abs {max_abs}, max rel {max_rel}")
             err[f"sstep_inner.{mode}"] = max(err[f"sstep_inner.{mode}"], max_abs)
@@ -497,7 +591,8 @@ def main() -> None:
         check(0.0 < dev_g < BF16_REL and 0.0 < dev_v < BF16_REL, f"ell_gram bf16 against fp32: {dev_g}, {dev_v}")
         check(0.0 < du < BF16_DU, f"sstep_inner bf16 against fp32: {du}")
     log(f"[kernels] both kernels on {DATASET} bundles (team 0 first rows, team {P_R - 1} last rows): worst so far "
-        + ", ".join(f"{k} {e:.3g}" for k, e in err.items()) + f"; {bitwise} two-launch checks of ell_gram bitwise equal")
+        + ", ".join(f"{k} {e:.3g}" for k, e in err.items()) + f"; {bitwise} two-launch checks of ell_gram and "
+        f"{inner_bitwise} of sstep_inner bitwise equal")
 
     # ---- phase 4: the main path at full width ---------------------------
     sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=1)
@@ -690,6 +785,7 @@ def main() -> None:
               "sb512": (512, 16, 32, *team_bundles(512), x_now, tp.n),
               "w540": (128, None, None, lambda k: (news_idx, news_val), 8, news_x, NEWS20_N)}
     report = {}
+    inner_inputs = {}  # label: (s, b, G, v) — the corrections' timed inputs
     for label, (sb, s, b, bundle, per_pass, x_in, n_cols) in shapes.items():
         # bounds from this run's inputs (bundle 0): bytes each read or written
         # once over the memory rate, against the operations that (G, v) needs
@@ -728,6 +824,7 @@ def main() -> None:
             if s is None:
                 continue
             g, v = ell_gram_and_v(*bundle(0), x_in, n=n_cols)
+            inner_inputs[label] = (s, b, g, v)
             tri = b * b * s * (s - 1) // 2  # entries of G's strict lower block triangle
 
             def corrections(k):
@@ -750,9 +847,21 @@ def main() -> None:
                 f"bound {row['bound_ms']:.6f} ms by {by} (bytes {row['bound']['bytes']:.3g}, operations {row['bound']['operations']:.3g})"
                 + ("" if row["design_ops_ms"] is None else f", the design's lookups alone {row['design_ops_ms']:.3g} ms"))
 
+    # the launch floor: the least device time of a kernel node in a CUDA
+    # graph on this card, timed as the kernels are
+    one = torch.zeros(1, dtype=torch.float32, device=device)
+    launch_floor_ms = device_ms(lambda k: one.add_(1.0), inner=20)
+    log(f"[times] launch floor (a one-element add_ in a CUDA graph): {launch_floor_ms:.5f} ms on the device")
+
     ab = None
-    if "--ab" in sys.argv[1:]:
-        ab = ab_times(ROOT / sys.argv[sys.argv.index("--ab") + 1], shapes, ell_gram_and_v, _build)
+    args = sys.argv[1:]
+    for at in (i for i, a in enumerate(args) if a == "--ab"):
+        old_source = ROOT / args[at + 1]
+        if "sstep_inner_launch" in old_source.read_text():
+            ab = {**(ab or {}), **ab_inner_times(old_source, inner_inputs, _build)}
+        else:
+            ab = {**(ab or {}), **ab_times(old_source, shapes, ell_gram_and_v, _build)}
+    sweep = sweep_inner(inner_inputs) if "--sweep" in args else None
 
     # the Yᵀu scatter-add of one main-path bundle (PyTorch's index_add_, no
     # kernel of the port)
@@ -785,7 +894,7 @@ def main() -> None:
             "max_abs_err": err[key], "tol": U_TOL if name == "sstep_inner" else GV_TOL,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
-            "design_ops_ms": row["design_ops_ms"],
+            "design_ops_ms": row["design_ops_ms"], "launch_floor_ms": launch_floor_ms,
             "shape": {"sb": S * B, "w": int(team_idx.shape[1]), "n": tp.n},
             **{label: {k: report[label][key][k] for k in TIMED_KEYS} for label in ("sb512", "w540") if key in report[label]},
         })
@@ -797,7 +906,7 @@ def main() -> None:
                       "x_max": x_max, "identity_gap": gap, "skew_gap": skew_gap, "skew_identity_gap": skew_identity_gap,
                       "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
                       "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
-                      "ledger_delay2_bf16": led16.to_dict(), "ab": ab}), flush=True)
+                      "ledger_delay2_bf16": led16.to_dict(), "ab": ab, "sweep": sweep}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

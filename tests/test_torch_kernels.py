@@ -27,7 +27,7 @@ from repro_torch.core import problem as tproblem
 from repro_torch.core.sgd import batch_rows, run_sgd
 from repro_torch.kernels import ell_gram as tgram
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
+from repro_torch.kernels.sstep_inner import MAX_CONSUMERS, MAX_SB, inner_geometry, sstep_inner, sstep_inner_ref
 from repro_torch.sparse.ell import ell_rmatvec
 
 # (G, v): rtol = atol = 1e-3, the reference's own kernel tolerance —
@@ -106,7 +106,8 @@ def test_ell_gram_bm_gives_identical_panels():
 def test_kernel_wrappers_reject_what_is_not_ported():
     """A precision the reference has not ("fp16") and shapes that do not
     fit are refused by every wrapper and plain version; both modes of
-    the reference ("fp32", "bf16") run."""
+    the reference ("fp32", "bf16") run. The corrections kernel's launch
+    geometry refuses what the kernel cannot launch."""
     idx, val, x = _bundle(8, 20, 3, 0)
     ti, tv, tx = torch.from_numpy(idx), torch.from_numpy(val), torch.from_numpy(x)
     for fn in (tgram.ell_gram_and_v, tgram.ell_gram_and_v_blocked):
@@ -122,6 +123,16 @@ def test_kernel_wrappers_reject_what_is_not_ported():
         assert fn(g, torch.zeros(8), 2, 4, 0.1, precision="bf16").shape == (8,)
     with pytest.raises(ValueError):
         sstep_inner(g, torch.zeros(8), 2, 8, 0.1)  # shapes do not match s·b
+    # the CUDA kernel's launch geometry: s·b above its shared-memory bound,
+    # an empty bundle, and consumer block sizes it cannot launch
+    with pytest.raises(ValueError, match="shared-memory bound"):
+        inner_geometry(2, MAX_SB // 2 + 1)
+    for s, b in ((0, 8), (2, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            inner_geometry(s, b)
+    for threads in (0, 48, MAX_CONSUMERS + 32):
+        with pytest.raises(ValueError, match="threads"):
+            inner_geometry(4, 32, threads=threads)
 
 
 def test_densify_oracle_matches_csr():
