@@ -8,7 +8,12 @@ mode of each (fp32 and bf16) against its plain PyTorch version on the GPU,
 drives the port's paths (the simulated HybridSGD engine: synchronous fp32,
 then delay D = 2 in bf16 and in fp32) on the full-size synthetic ``rcv1``
 dataset through the entry points a user calls, checks that each path went
-through its kernels, reads the comm ledger, times the kernels, and prints
+through its kernels, reads the comm ledger, times the kernels, drives the
+front door at the same width (an ``ExperimentSpec`` read from JSON text →
+``plan`` → ``Session`` → save → ``Session.restore`` → ``run`` → report, the
+delayed bf16 schedule, a stop policy, timed comm and a resumable sweep,
+with the launch counts of each run and the front door's cost a round
+beside ``run_engine_chunk``'s), and prints
 
   * the GPU's name and power limit,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
@@ -452,6 +457,222 @@ def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def front_door_phase(tp, zero_counts, counts, smi: str, device=None) -> dict:
+    """The front door at full width: an ``ExperimentSpec`` read from JSON
+    text (the reference's wire form), ``plan``, a ``Session`` run to its
+    end, a second one saved after two steps and restored into a fresh
+    object, the delayed bf16 schedule, a stop policy, timed comm, a
+    resumable sweep, and the front door's own cost a round beside
+    ``run_engine_chunk``'s. ``tp`` is the main path's team problem (the
+    same rows the spec builds); ``device`` is what the entry points get
+    (None: the card). Returns the numbers for the phase's JSON line."""
+    import tempfile
+
+    from repro_torch.api import (
+        ExperimentSpec, RunReport, Session, StopPolicy, plan, run, sweep,
+    )
+    from repro_torch.core.engine import ParallelSGDSchedule, engine_comm_ledger, run_engine_chunk, run_parallel_sgd
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.train.checkpoint import load_session_checkpoint
+
+    started = time.perf_counter()
+
+    expected = ROUNDS * P_R * (TAU // S)
+    text = json.dumps({
+        "name": f"{DATASET}-front-door", "dataset": DATASET, "seed": 0, "machine": "perlmutter-cpu",
+        "autotune": False, "row_multiple": S * B,
+        "schedule": {"p_r": P_R, "s": S, "b": B, "tau": TAU, "eta": ETA, "rounds": ROUNDS, "loss_every": 2,
+                     "gram": "pallas", "bk": 512, "interpret": True, "p_c": 2},
+        "mesh": {"p_r": P_R, "p_c": 2, "backend": "simulated", "partitioner": "cyclic"},
+    })
+    spec = ExperimentSpec.from_json(text)
+    want_sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=2, p_c=2)
+    check(spec.schedule == want_sched and spec.schedule.gram == "kernel", f"the spec read {spec.schedule}")
+    check(ExperimentSpec.from_json(spec.to_json()) == spec and json.loads(spec.to_json())["schedule"]["gram"] == "pallas",
+          "the spec does not write back its wire form")
+    pl = plan(spec)
+    log(f"[front] spec {spec.name}: content hash {spec.content_hash()}; plan: predicted {pl.cost.total:.6g} s an epoch "
+        f"on {spec.machine}, regime {pl.regime} (balance {pl.balance:.3g}, model recommends D = {pl.recommended_delay})")
+
+    def path_launches(label: str, want: dict) -> dict:
+        got = counts()
+        log(f"[front] launches, {label}: {got}")
+        for name, count in want.items():
+            check(got[name] == count, f"front door, {label}: {name} launched {got[name]} times, expected {count}")
+        return got
+
+    fp32 = {"ell_gram.fp32": expected, "ell_gram.bf16": 0, "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
+    out = {"spec_hash": spec.content_hash(), "predicted_s": pl.cost.total, "regime": pl.regime}
+
+    # the uninterrupted run
+    zero_counts()
+    t0 = time.perf_counter()
+    whole = Session(spec, device=device)
+    out["session_build_s"] = time.perf_counter() - t0
+    check(whole.bundle.team.values.device.type == ("cuda" if device is None else torch.device(device).type),
+          f"the session's problem is on {whole.bundle.team.values.device}")
+    rep = whole.run()
+    out["launches_uninterrupted"] = path_launches("uninterrupted run", fp32)
+    check(rep.stop_reason == "rounds" and rep.rounds_completed == ROUNDS, f"the run ended {rep.stop_reason}")
+    check(rep.x.shape == (tp.n,) and bool(np.isfinite(rep.x).all()), "the front door's final x is not finite (n,)")
+    check(len(rep.losses) == ROUNDS // 2 and bool(np.isfinite(rep.losses).all()) and rep.losses[-1] < rep.losses[0],
+          f"the front door's losses are wrong: {rep.losses}")
+
+    # two steps, save, restore into a fresh object, run to the end
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = pathlib.Path(tmp) / "ck"
+        zero_counts()
+        first = Session(spec, device=device)
+        first.step_rounds(2)
+        first.step_rounds(2)
+        t0 = time.perf_counter()
+        first.save(ck)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_session_checkpoint(ck, expect_spec_hash=spec.content_hash())
+        out["checkpoint_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        second = Session.restore(ck, device=device)
+        out["restore_s"] = time.perf_counter() - t0
+        check(second.rounds_done == 4 and len(second.losses) == 2, "the restored session lost its round or its losses")
+        rep2 = second.run()
+        out["launches_restored"] = path_launches("saved after 4 rounds and restored", fp32)
+    x_max = float(np.abs(rep.x).max())
+    gap_restored = float(np.abs(rep2.x - rep.x).max())
+    x_engine, _ = run_parallel_sgd(tp, torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device), spec.schedule)
+    gap_engine = float(np.abs(rep.x - x_engine.cpu().numpy()).max())
+    loss_gap = float(np.max(np.abs(rep2.losses - rep.losses) / np.abs(rep.losses))) if len(rep2.losses) == len(rep.losses) else math.inf
+    log(f"[front] restored vs uninterrupted: max |Δx| = {gap_restored:.3g}; uninterrupted vs run_parallel_sgd: "
+        f"{gap_engine:.3g} (limit {X_TOL:g}·max |x| = {X_TOL * x_max:.3g}); losses {' '.join(f'{v:.5f}' for v in rep.losses)}, "
+        f"restored {' '.join(f'{v:.5f}' for v in rep2.losses)}, max relative gap {loss_gap:.3g}")
+    check(x_max > 0 and gap_restored <= X_TOL * x_max, f"the restored run is {gap_restored} from the uninterrupted one")
+    check(gap_engine <= X_TOL * x_max, f"the front door is {gap_engine} from run_parallel_sgd")
+    check(loss_gap <= X_TOL, f"the loss traces differ: {rep.losses} vs {rep2.losses}")
+    out.update(x_max=x_max, gap_restored=gap_restored, gap_engine=gap_engine, loss_gap=loss_gap,
+               compile_time_s=rep.compile_time_s, wall_time_s=rep.wall_time_s, losses=rep.losses.tolist())
+
+    # the delayed bf16 schedule, and fp32 at the same delay
+    sched16 = dataclasses.replace(spec.schedule, delay=DELAY, precision="bf16")
+    zero_counts()
+    rep16 = run(dataclasses.replace(spec, schedule=sched16), device=device)
+    out["launches_delay2_bf16"] = path_launches(f"D = {DELAY} bf16", {
+        "ell_gram.fp32": 0, "ell_gram.bf16": expected, "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
+    zero_counts()
+    rep32 = run(dataclasses.replace(spec, schedule=dataclasses.replace(spec.schedule, delay=DELAY)), device=device)
+    path_launches(f"D = {DELAY} fp32", fp32)
+    bf16_gap = float(np.abs(rep16.x - rep32.x).max())
+    log(f"[front] D = {DELAY} bf16 vs fp32 through run(spec): max |Δx| = {bf16_gap:.3g} (limit {BF16_DX})")
+    check(0.0 < bf16_gap < BF16_DX, f"D = 2 bf16 against fp32 through the front door: {bf16_gap}")
+    out["delay2_bf16_vs_fp32"] = bf16_gap
+
+    # the stop policy: a target between the second and third samples
+    losses = [float(v) for v in rep.losses]
+    target = (losses[1] + losses[2]) / 2
+    stop_round = 2 * (1 + next(i for i, v in enumerate(losses) if v <= target))
+    check(losses[0] > target > losses[-1] and stop_round < ROUNDS, f"no target between the samples {losses}")
+    rep_stop = run(dataclasses.replace(spec, stop=StopPolicy(target_loss=target)), device=device)
+    log(f"[front] stop at target {target:.6f}: {rep_stop.stop_reason} at round {rep_stop.rounds_completed} with loss "
+        f"{float(rep_stop.losses[-1]):.6f} (the uninterrupted run crosses at round {stop_round})")
+    check(rep_stop.stop_reason == "target_loss" and rep_stop.rounds_completed < ROUNDS
+          and float(rep_stop.losses[-1]) <= target, "the stop policy did not stop at the target")
+    out["stop"] = {"target": target, "round": rep_stop.rounds_completed, "loss": float(rep_stop.losses[-1])}
+
+    # timed comm, and the report's JSON round trip
+    rep_t = run(dataclasses.replace(spec, comm_timing=True), device=device)
+    led = rep_t.ledger
+    log(f"[front] timed comm: {led.seconds_per_round * 1e3:.3f} ms a round (median of {len(led.round_seconds)}), "
+        f"phase seconds a round {led.phase_seconds}; {smi}")
+    check(led.seconds_per_round is not None and len(led.round_seconds) == ROUNDS, "the timed run measured no rounds")
+    check(set(led.phase_seconds) == {"bundle_compute", "allreduce_gv", "param_avg"}, f"phase seconds {led.phase_seconds}")
+    back = RunReport.from_json(rep_t.to_json())
+    check(back.to_json() == rep_t.to_json() and back.ledger == led and back.spec == rep_t.spec,
+          "RunReport.to_json() does not round-trip")
+    out.update(timed_round_ms=led.seconds_per_round * 1e3, phase_seconds=led.phase_seconds)
+
+    # a resumable sweep of two points: the first call runs one and skips
+    # the other (max_points), the second resumes one and runs the other,
+    # the third resumes both and runs nothing
+    points = [dataclasses.replace(spec, name=f"sweep-{i}", schedule=dataclasses.replace(spec.schedule, rounds=2, eta=eta))
+              for i, eta in enumerate((ETA, ETA / 2))]
+    reg = obs_metrics.registry()
+
+    def sweep_counts() -> dict:
+        return {k: v["value"] for k, v in reg.snapshot().items() if k.startswith("sweep.")}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        calls = []
+        for max_points in (1, None, None):
+            before = sweep_counts()
+            result = sweep(points, resume_dir=tmp, max_points=max_points, device=device)
+            after = sweep_counts()
+            calls.append(({k: after[k] - before.get(k, 0.0) for k in after if after[k] != before.get(k, 0.0)},
+                          result.resumed, len(result.skipped)))
+    log(f"[front] sweep calls (counter deltas, resumed, skipped): {calls}")
+    check(calls[0] == ({"sweep.points_total": 1.0, "sweep.points_skipped_total": 1.0}, [False], 1)
+          and calls[1] == ({"sweep.points_total": 1.0, "sweep.points_resumed_total": 1.0}, [True, False], 0)
+          and calls[2] == ({"sweep.points_resumed_total": 2.0}, [True, True], 0),
+          "the sweep did not resume its finished points")
+    out["sweep_calls"] = calls
+
+    # the front door's cost a round: step_rounds(1) against
+    # run_engine_chunk(…, 1, …) + synchronize on the same team problem,
+    # interleaved round by round (an engine round, a step of a session
+    # that samples the loss every 2 rounds, a step of one that never
+    # does), so that a shift of the host's speed between runs hits all
+    # three alike. Each session step's wall splits into the part the
+    # session accrues to wall_time_s (the round, the loss sample, the
+    # wait) and the rest: the RoundEvent (the host copy of x, the ledger
+    # snapshot, the modeled comm words).
+    quiet = dataclasses.replace(spec, schedule=dataclasses.replace(spec.schedule, loss_every=0))
+    walls = {"engine": [], "session": [], "session_no_loss": []}  # (round, wall, accrued) a step
+    for _ in range(4):
+        sessions = {"session": Session(spec, device=device), "session_no_loss": Session(quiet, device=device)}
+        for sess in sessions.values():
+            sess.step_rounds(1)  # the "compile" chunk, not timed
+        x = run_engine_chunk(whole.bundle.team, torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device),
+                             0, 1, spec.schedule)
+        for r in range(1, ROUNDS):
+            t0 = time.perf_counter()
+            x = run_engine_chunk(whole.bundle.team, x, r, 1, spec.schedule)
+            if x.is_cuda:
+                sync()
+            w = time.perf_counter() - t0
+            walls["engine"].append((r + 1, w, w))
+            for who, sess in sessions.items():
+                before = sess.wall_time_s
+                t0 = time.perf_counter()
+                ev = sess.step_rounds(1)
+                walls[who].append((ev.rounds_done, time.perf_counter() - t0, ev.wall_time_s - before))
+    ms = {k: statistics.median(w for _, w, _ in v) * 1e3 for k, v in walls.items()}
+    accrued_ms = {k: statistics.median(a for _, _, a in v) * 1e3 for k, v in walls.items()}
+    event_ms = {k: statistics.median(w - a for _, w, a in v) * 1e3 for k, v in walls.items()}
+    over_ms = {k: statistics.median((w - e) for (_, w, _), (_, e, _) in zip(walls[k], walls["engine"])) * 1e3
+               for k in ("session", "session_no_loss")}  # paired with the engine round just before
+    sampled = [(w - e) * 1e3 for (r, w, _), (_, e, _) in zip(walls["session"], walls["engine"]) if r % 2 == 0]
+    t0 = time.perf_counter()
+    engine_comm_ledger(spec.schedule, tp.n, tp=whole.bundle.team)
+    out["ledger_capture_s"] = time.perf_counter() - t0
+    log(f"[front] wall a round (medians over 4 × {ROUNDS - 1} rounds, interleaved): run_engine_chunk(…, 1, …) "
+        f"{ms['engine']:.3f} ms; Session.step_rounds(1) {ms['session']:.3f} ms with a loss sample every 2 rounds, "
+        f"{ms['session_no_loss']:.3f} ms with loss_every = 0; the front door's cost a round, paired with the engine round "
+        f"beside it: {over_ms['session']:.3f} ms ({statistics.median(sampled):.3f} ms at a loss sample), "
+        f"{over_ms['session_no_loss']:.3f} ms without loss samples; of a step, the RoundEvent "
+        f"{event_ms['session']:.3f} / {event_ms['session_no_loss']:.3f} ms; "
+        f"compile_time_s {rep.compile_time_s:.4f} s; Session() {out['session_build_s']:.3f} s, save {out['save_s']:.4f} s, "
+        f"checkpoint load {out['checkpoint_load_s']:.4f} s, Session.restore {out['restore_s']:.3f} s, ledger capture "
+        f"{out['ledger_capture_s']:.4f} s; {smi}")
+    out.update(round_ms=ms, round_accrued_ms=accrued_ms, round_event_ms=event_ms, round_overhead_ms=over_ms,
+               round_overhead_ms_at_sample=statistics.median(sampled), round_walls=walls)
+    if "--profile" in sys.argv[1:]:
+        stepped = Session(spec, device=device)
+        stepped.step_rounds(1)  # the "compile" chunk, outside the trace
+        profile_main_path("front door step_rounds(1)", lambda: [stepped.step_rounds(1) for _ in range(ROUNDS - 1)],
+                          ROUNDS - 1)
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[front] the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     # ---- phase 1: device ------------------------------------------------
     if not torch.cuda.is_available():
@@ -873,6 +1094,10 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_main_path("synchronous fp32", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched), ROUNDS)
         profile_main_path(f"D = {DELAY} bf16", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched16), ROUNDS)
+
+    # ---- the front door: spec → plan → Session → report → sweep ----------
+    front = front_door_phase(tp, zero_counts, counts, smi)
+    print(json.dumps({"front_door": front}), flush=True)
 
     # ---- phase 6: the kernels line, the device lines ---------------------
     # each (kernel, mode) with its launches on the path that runs it: the

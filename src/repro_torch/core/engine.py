@@ -91,6 +91,10 @@ class ParallelSGDSchedule:
             panels and ignores it.
     bm      optional row tile for the blocked walk's panel expansion;
             any ``bm`` gives the same result. Ignored by the CUDA kernel.
+    interpret   the reference's Pallas interpret-mode flag. Nothing in
+            the port reads it: it is carried, with the reference's
+            default, only so that an experiment spec written by either
+            package reads back and content-hashes the same in both.
     precision   "fp32" (default) or "bf16": the (G, v) kernel rounds its
             operands to bf16 and accumulates in float32, and the
             per-bundle (G, v) Allreduce ships bf16 words (half the
@@ -118,6 +122,7 @@ class ParallelSGDSchedule:
     loss_every: int = 0
     gram: str = "kernel"
     bk: int | None = 512
+    interpret: bool = True
     p_c: int = 1
     delay: int = 0
     bm: int | None = None

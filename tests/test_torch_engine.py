@@ -215,7 +215,6 @@ def test_schedule_corner_constructors_match_reference():
     ]
     for t, j in pairs:
         want = dataclasses.asdict(j)
-        want.pop("interpret")  # no meaning in the port
         assert want.pop("gram") == "pallas" and t.gram == "kernel"
         got = dataclasses.asdict(t)
         got.pop("gram")

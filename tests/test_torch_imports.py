@@ -25,7 +25,11 @@ SLICE_MODULES = [
     "repro_torch.kernels._build", "repro_torch.costmodel", "repro_torch.costmodel.machines",
     "repro_torch.costmodel.hockney", "repro_torch.costmodel.optimum",
     "repro_torch.costmodel.calibrate", "repro_torch.costmodel.refine",
-    "repro_torch.costmodel.topology",
+    "repro_torch.costmodel.topology", "repro_torch.core.faults", "repro_torch.obs",
+    "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.train",
+    "repro_torch.train.checkpoint", "repro_torch.api", "repro_torch.api.spec",
+    "repro_torch.api.plan", "repro_torch.api.report", "repro_torch.api.run",
+    "repro_torch.api.session", "repro_torch.api.sweep",
 ]
 
 _IMPORT_ALL = """
@@ -90,10 +94,12 @@ def test_every_kernel_has_source_plain_version_and_counter():
     assert "build/" in ignored
 
 
-def test_device_none_means_cuda_or_an_error():
+def test_device_none_means_cuda_or_an_error(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is allowed to succeed")
     from repro_torch import resolve_device
+    from repro_torch.api import ExperimentSpec, MeshSpec, Session, run, sweep
+    from repro_torch.core.engine import ParallelSGDSchedule
     from repro_torch.core.problem import make_problem, problem_from_numpy
     from repro_torch.core.teams import stack_row_teams, team_problem_from_numpy
     from repro_torch.sparse.ell import ell_from_csr
@@ -102,7 +108,15 @@ def test_device_none_means_cuda_or_an_error():
     a = make_skewed_csr(16, 20, 3, 0.0, seed=0)
     y = np.ones(16)
     idx, val, valid = np.zeros((1, 8, 2), np.int32), np.zeros((1, 8, 2)), np.ones((1, 8), bool)
+    spec = ExperimentSpec(dataset="rcv1-sm", mesh=MeshSpec(p_r=2, p_c=2),
+                          schedule=ParallelSGDSchedule.hybrid(2, 2, 8, 0.05, 8, rounds=2))
+    Session(spec, device="cpu").save(tmp_path / "ck")  # the device is never in the checkpoint
     calls = [
+        lambda: Session(spec),
+        lambda: run(spec),
+        lambda: Session.restore(tmp_path / "ck"),
+        lambda: Session.restore_elastic(tmp_path / "ck", devices=2),
+        lambda: sweep([spec], resume_dir=tmp_path / "sweep"),
         lambda: resolve_device(None),
         lambda: ell_from_csr(a),
         lambda: make_problem(a, y),
