@@ -619,12 +619,9 @@ def front_door_phase(tp, zero_counts, counts, smi: str, device=None) -> dict:
     # interleaved round by round (an engine round, a step of a session
     # that samples the loss every 2 rounds, a step of one that never
     # does), so that a shift of the host's speed between runs hits all
-    # three alike. Each session step's wall splits into the part the
-    # session accrues to wall_time_s (the round, the loss sample, the
-    # wait) and the rest: the RoundEvent (the host copy of x, the ledger
-    # snapshot, the modeled comm words).
+    # three alike.
     quiet = dataclasses.replace(spec, schedule=dataclasses.replace(spec.schedule, loss_every=0))
-    walls = {"engine": [], "session": [], "session_no_loss": []}  # (round, wall, accrued) a step
+    walls = {"engine": [], "session": [], "session_no_loss": []}  # seconds a round
     for _ in range(4):
         sessions = {"session": Session(spec, device=device), "session_no_loss": Session(quiet, device=device)}
         for sess in sessions.values():
@@ -636,33 +633,25 @@ def front_door_phase(tp, zero_counts, counts, smi: str, device=None) -> dict:
             x = run_engine_chunk(whole.bundle.team, x, r, 1, spec.schedule)
             if x.is_cuda:
                 sync()
-            w = time.perf_counter() - t0
-            walls["engine"].append((r + 1, w, w))
+            walls["engine"].append(time.perf_counter() - t0)
             for who, sess in sessions.items():
-                before = sess.wall_time_s
                 t0 = time.perf_counter()
-                ev = sess.step_rounds(1)
-                walls[who].append((ev.rounds_done, time.perf_counter() - t0, ev.wall_time_s - before))
-    ms = {k: statistics.median(w for _, w, _ in v) * 1e3 for k, v in walls.items()}
-    accrued_ms = {k: statistics.median(a for _, _, a in v) * 1e3 for k, v in walls.items()}
-    event_ms = {k: statistics.median(w - a for _, w, a in v) * 1e3 for k, v in walls.items()}
-    over_ms = {k: statistics.median((w - e) for (_, w, _), (_, e, _) in zip(walls[k], walls["engine"])) * 1e3
+                sess.step_rounds(1)
+                walls[who].append(time.perf_counter() - t0)
+    ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    over_ms = {k: statistics.median(w - e for w, e in zip(walls[k], walls["engine"])) * 1e3
                for k in ("session", "session_no_loss")}  # paired with the engine round just before
-    sampled = [(w - e) * 1e3 for (r, w, _), (_, e, _) in zip(walls["session"], walls["engine"]) if r % 2 == 0]
     t0 = time.perf_counter()
     engine_comm_ledger(spec.schedule, tp.n, tp=whole.bundle.team)
     out["ledger_capture_s"] = time.perf_counter() - t0
     log(f"[front] wall a round (medians over 4 × {ROUNDS - 1} rounds, interleaved): run_engine_chunk(…, 1, …) "
         f"{ms['engine']:.3f} ms; Session.step_rounds(1) {ms['session']:.3f} ms with a loss sample every 2 rounds, "
         f"{ms['session_no_loss']:.3f} ms with loss_every = 0; the front door's cost a round, paired with the engine round "
-        f"beside it: {over_ms['session']:.3f} ms ({statistics.median(sampled):.3f} ms at a loss sample), "
-        f"{over_ms['session_no_loss']:.3f} ms without loss samples; of a step, the RoundEvent "
-        f"{event_ms['session']:.3f} / {event_ms['session_no_loss']:.3f} ms; "
+        f"beside it: {over_ms['session']:.3f} ms with loss samples, {over_ms['session_no_loss']:.3f} ms without; "
         f"compile_time_s {rep.compile_time_s:.4f} s; Session() {out['session_build_s']:.3f} s, save {out['save_s']:.4f} s, "
         f"checkpoint load {out['checkpoint_load_s']:.4f} s, Session.restore {out['restore_s']:.3f} s, ledger capture "
         f"{out['ledger_capture_s']:.4f} s; {smi}")
-    out.update(round_ms=ms, round_accrued_ms=accrued_ms, round_event_ms=event_ms, round_overhead_ms=over_ms,
-               round_overhead_ms_at_sample=statistics.median(sampled), round_walls=walls)
+    out.update(round_ms=ms, round_overhead_ms=over_ms)
     if "--profile" in sys.argv[1:]:
         stepped = Session(spec, device=device)
         stepped.step_rounds(1)  # the "compile" chunk, outside the trace
