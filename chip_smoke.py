@@ -8,14 +8,21 @@ mode of each (fp32 and bf16) against its plain PyTorch version on the GPU,
 drives the port's paths (the simulated HybridSGD engine: synchronous fp32,
 then delay D = 2 in bf16 and in fp32) on the full-size synthetic ``rcv1``
 dataset through the entry points a user calls, checks that each path went
-through its kernels, reads the comm ledger, times the kernels, drives the
-front door at the same width (an ``ExperimentSpec`` read from JSON text →
-``plan`` → ``Session`` → save → ``Session.restore`` → ``run`` → report, the
-delayed bf16 schedule, a stop policy, timed comm and a resumable sweep,
-with the launch counts of each run and the front door's cost a round
-beside ``run_engine_chunk``'s), and prints
+through its kernels, reads the comm ledger, times the kernels (also on the
+column-local bundles of a 2 × 2 mesh), drives the front door at the same
+width (an ``ExperimentSpec`` read from JSON text → ``plan`` → ``Session`` →
+save → ``Session.restore`` → ``run`` → report, the delayed bf16 schedule, a
+stop policy, timed comm and a resumable sweep, with the launch counts of
+each run and the front door's cost a round beside ``run_engine_chunk``'s),
+then the 2D-mesh backend (``backend="shard_map"``) through ``run(spec)`` and
+``Session``: a 1 × 1 mesh on a world-size-1 NCCL group in this process, and
+a 2 × 2 mesh of four spawned processes sharing the card in a gloo group
+with CUDA tensors (fp32 at D = 0, bf16 at D = 1), each held against the
+simulated engine, with each rank's launch counts and comm ledger checked
+against the closed form; and prints
 
   * the GPU's name and power limit,
+  * one JSON line ``{"front_door": ...}`` and one ``{"mesh": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
     bound and library yardstick,
@@ -30,7 +37,8 @@ times it in turns with this one at each timed shape and mode: an
 ``sstep_inner.cu`` whose entry point is ``sstep_inner_launch(G, v, u, s, b,
 eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
-block sizes at the timed shapes. Every run prints the launch floor: the
+block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase alone,
+its 2 × 2 mesh over NCCL with one rank a card, on a machine with four cards. Every run prints the launch floor: the
 device time of a one-element PyTorch operation in a CUDA graph.
 
 Any failed phase ends the process with a non-zero exit code; there is no
@@ -42,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -86,6 +95,10 @@ NEWS20_N = 1355191  # news20's columns: a phase-3 shape and a timed one, at its 
 # the timings kept for each shape beside the main path's in the kernels line
 TIMED_KEYS = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "design_ops_ms")
 P_R, S, B, TAU, ROUNDS, ETA = 4, 4, 32, 32, 8, 1.0
+# the mesh phase: a 2 × 2 mesh (p_r = p_c = 2) of four processes on the one
+# card, fp32 at D = 0 and bf16 at D = 1 (label: delay, precision)
+MESH_P = 2
+MESH_RUNS = {"fp32_d0": (0, "fp32"), "bf16_d1": (1, "bf16")}
 
 
 def log(msg: str) -> None:
@@ -662,6 +675,225 @@ def front_door_phase(tp, zero_counts, counts, smi: str, device=None) -> dict:
     return out
 
 
+def mesh_spec(p_r: int, p_c: int, backend: str, delay: int = 0, precision: str = "fp32"):
+    """The mesh phase's spec: full-size rcv1, the main path's s, b, τ, η and
+    rounds on a p_r × p_c mesh, a loss sample every 4 rounds."""
+    from repro_torch.api import ExperimentSpec, MeshSpec
+    from repro_torch.core.engine import ParallelSGDSchedule
+
+    return ExperimentSpec(
+        dataset=DATASET, seed=0, row_multiple=S * B, name=f"{DATASET}-mesh-{p_r}x{p_c}",
+        schedule=ParallelSGDSchedule.hybrid(p_r=p_r, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=4,
+                                            p_c=p_c, delay=delay, precision=precision),
+        mesh=MeshSpec(p_r=p_r, p_c=p_c, backend=backend),
+    )
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import sstep_inner
+    from repro_torch.kernels.ell_gram import ell_gram_and_v
+
+    return {f"{name}.{mode}": fn.launches[mode]
+            for name, fn in (("ell_gram", ell_gram_and_v), ("sstep_inner", sstep_inner))
+            for mode in ("fp32", "bf16")}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import sstep_inner
+    from repro_torch.kernels.ell_gram import ell_gram_and_v
+
+    ell_gram_and_v.launches.update(fp32=0, bf16=0)
+    sstep_inner.launches.update(fp32=0, bf16=0)
+
+
+def stepped_run(sess) -> list:
+    """Drive a session to its end one round a step; the wall of each step
+    (a round, the gather of x for its ``RoundEvent``, a loss sample every
+    4 rounds), in seconds."""
+    walls = []
+    while not sess.done:
+        t0 = time.perf_counter()
+        sess.step_rounds(1)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str, device, backend: str) -> None:
+    """One rank of the 2 × 2 mesh (a spawned process): joins a ``backend``
+    group through a file store, runs each of ``MESH_RUNS`` through
+    ``Session`` on ``device`` (None: ``cuda:(rank % device_count)`` — the
+    one card the four ranks share, or a card each; the kernels are already
+    built), and writes its launch counts, ledger, step walls and final x
+    under ``out``; then a timed run at D = 1 (``comm_timing``: per-round
+    walls and the §6.5 phase probes on the real groups)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.api import Session
+
+    # the ranks share the host's cores: one share each, not each all of them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        result = {}
+        for label, (delay, precision) in MESH_RUNS.items():
+            sess = Session(mesh_spec(MESH_P, MESH_P, "shard_map", delay, precision), device=device)
+            zero_launch_counts()
+            walls = stepped_run(sess)
+            result[label] = {"launches": launch_counts(), "ledger": sess.ledger.to_dict(), "walls": walls,
+                             "losses": [float(v) for v in sess.losses], "device": str(sess.device)}
+            np.save(pathlib.Path(out) / f"{label}.rank{rank}.npy", sess.current_x())
+        timed = Session(dataclasses.replace(mesh_spec(MESH_P, MESH_P, "shard_map", delay=1), comm_timing=True),
+                        device=device).run()
+        result["timed_d1"] = {"ledger": timed.ledger.to_dict()}
+        (pathlib.Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str = "gloo") -> dict:
+    """The 2D-mesh backend at full width, through the front door:
+    (a) a world-size-1 ``backend`` group driven by ``run(spec)`` with
+    ``backend="shard_map"`` on a 1 × 1 mesh; (b) four spawned processes in
+    a ``ranks_backend`` group — gloo with CUDA tensors: a 2 × 2 mesh on the
+    one card; NCCL (``--mesh-nccl``): a card each — fp32 at D = 0 and bf16
+    at D = 1, then a timed run at D = 1. Each is held against the simulated engine on
+    the card with the same schedule; each rank must launch each kernel of
+    its path ROUNDS·τ/s times and hold the simulated run's ledger, whose
+    bytes a round are the closed form. ``device`` is what the entry points
+    get (None: the card). Returns the numbers for the phase's JSON line."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.api import MeshSpec, Session, run
+    from repro_torch.core.comm import CommLedger
+
+    started = time.perf_counter()
+    expected = ROUNDS * (TAU // S)  # launches a rank: one bundle of each kind a step
+    fp32 = {"ell_gram.fp32": expected, "ell_gram.bf16": 0, "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
+    bf16 = {"ell_gram.fp32": 0, "ell_gram.bf16": expected, "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
+    out = {}
+
+    def simulated(spec):
+        sim = dataclasses.replace(spec, mesh=MeshSpec(p_r=spec.mesh.p_r, p_c=spec.mesh.p_c))
+        sess = Session(sim, device=device)
+        walls = stepped_run(sess)
+        return sess, walls
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the 1 × 1 mesh, in this process
+        spec1 = mesh_spec(1, 1, "shard_map")
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0, world_size=1)
+        try:
+            zero_launch_counts()
+            rep1 = run(spec1, device=device)
+            got1 = launch_counts()
+        finally:
+            dist.destroy_process_group()
+        sim1, _ = simulated(spec1)
+        x_sim1 = sim1.current_x()
+        x_max1 = float(np.abs(x_sim1).max())
+        gap1 = float(np.abs(rep1.x - x_sim1).max())
+        led1 = rep1.ledger
+        log(f"[mesh] 1 × 1 ({backend}, world size 1) through run(spec): launches {got1}; max |Δx| to the simulated "
+            f"engine {gap1:.3g} (limit {X_TOL:g}·max |x| = {X_TOL * x_max1:.3g}); losses {rep1.losses.tolist()}; "
+            f"counted bytes {led1.counted_bytes()}")
+        check(got1 == fp32, f"1 × 1 mesh: launches {got1}, expected {fp32}")
+        check(x_max1 > 0 and gap1 <= X_TOL * x_max1, f"1 × 1 mesh: {gap1} from the simulated engine")
+        check(led1.rates == sim1.ledger.rates and led1.counted_bytes()["total_bytes"] == 0.0,
+              f"1 × 1 mesh ledger {led1.rates} vs simulated {sim1.ledger.rates}")
+        out["1x1"] = {"backend": backend, "launches": got1, "gap": gap1, "x_max": x_max1,
+                      "losses": rep1.losses.tolist(), "wall_time_s": rep1.wall_time_s}
+
+        # (b) the 2 × 2 mesh: four processes on the one card
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(MESH_P * MESH_P, f"{tmp}/store4", tmp, device, ranks_backend),
+                           nprocs=MESH_P * MESH_P, start_method="spawn", join=True)
+        out["spawned_s"] = time.perf_counter() - t0
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text()) for r in range(MESH_P * MESH_P)]
+        where = ("gloo, CUDA tensors, 4 processes on one card" if ranks_backend == "gloo"
+                 else f"{ranks_backend}, a card a rank: {sorted({res['fp32_d0']['device'] for res in ranks})}")
+        n = int(np.load(pathlib.Path(tmp) / f"fp32_d0.rank0.npy").shape[0])
+        for label, (delay, precision) in MESH_RUNS.items():
+            spec = mesh_spec(MESH_P, MESH_P, "shard_map", delay, precision)
+            sim, sim_walls = simulated(spec)
+            x_sim = sim.current_x()
+            xs = [np.load(pathlib.Path(tmp) / f"{label}.rank{r}.npy") for r in range(MESH_P * MESH_P)]
+            check(all(np.array_equal(x, xs[0]) for x in xs), f"2 × 2 {label}: the ranks gathered different x")
+            x_max = float(np.abs(x_sim).max())
+            gap = float(np.abs(xs[0] - x_sim).max())
+            limit = X_TOL * x_max if precision == "fp32" else BF16_DX
+            want_launches = fp32 if precision == "fp32" else bf16
+            word = 4 if precision == "fp32" else 2
+            want_bytes = {"gram_bytes": float((S * B * S * B + S * B) * (TAU // S) * word),
+                          "sync_bytes": float(4 * -(-n // MESH_P))}
+            for r, res in enumerate(ranks):
+                got = res[label]["launches"]
+                led = CommLedger.from_dict(res[label]["ledger"])
+                check(got == want_launches, f"2 × 2 {label}, rank {r}: launches {got}, expected {want_launches}")
+                check(led.rates == sim.ledger.rates and led.rounds == ROUNDS,
+                      f"2 × 2 {label}, rank {r}: ledger {led.rates} vs simulated {sim.ledger.rates}")
+                per_round = led.counted_bytes(1)
+                check(per_round["gram_bytes"] == want_bytes["gram_bytes"]
+                      and per_round["sync_bytes"] == want_bytes["sync_bytes"],
+                      f"2 × 2 {label}, rank {r}: bytes a round {per_round}, closed form {want_bytes}")
+                check(res[label]["losses"] == ranks[0][label]["losses"], f"2 × 2 {label}: rank {r}'s losses differ")
+            mesh_ms = statistics.median(max(res[label]["walls"][k] for res in ranks) for k in range(1, ROUNDS)) * 1e3
+            sim_ms = statistics.median(sim_walls[1:]) * 1e3
+            log(f"[mesh] 2 × 2 {label} ({where}): launches a rank "
+                f"{ranks[0][label]['launches']}; max |Δx| to the simulated engine at p_r = {MESH_P} {gap:.3g} "
+                f"(limit {limit:.3g}); bytes a round {want_bytes}; losses {ranks[0][label]['losses']} "
+                f"(simulated {sim.losses}); step wall {mesh_ms:.2f} ms (median, slowest rank) vs the simulated "
+                f"engine's {sim_ms:.2f} ms — a correctness run, not a comm measurement; {smi}")
+            check(x_max > 0 and gap <= limit, f"2 × 2 {label}: max |Δx| {gap} to the simulated engine, limit {limit}")
+            out[label] = {"launches_per_rank": ranks[0][label]["launches"], "gap": gap, "limit": limit,
+                          "x_max": x_max, "bytes_per_round": want_bytes, "losses": ranks[0][label]["losses"],
+                          "sim_losses": sim.losses, "step_ms": mesh_ms, "sim_step_ms": sim_ms,
+                          "walls_rank0": ranks[0][label]["walls"], "sim_walls": sim_walls,
+                          "devices": sorted({res[label]["device"] for res in ranks})}
+        # the timed D = 1 run: per-round walls and phase probes on the real groups
+        timed = [CommLedger.from_dict(res["timed_d1"]["ledger"]) for res in ranks]
+        for r, led in enumerate(timed):
+            check(len(led.round_seconds) == ROUNDS and set(led.phase_seconds) == {"bundle_compute", "allreduce_gv",
+                                                                                   "param_avg"},
+                  f"2 × 2 timed D = 1, rank {r}: {len(led.round_seconds)} round walls, phases {led.phase_seconds}")
+        out["timed_d1"] = [{"round_s": led.seconds_per_round, "phase_s": led.phase_seconds,
+                            "exposed_comm_s": led.exposed_comm_s, "total_comm_s": led.total_comm_s,
+                            "overlap_efficiency": led.overlap_efficiency} for led in timed]
+        log(f"[mesh] 2 × 2 timed D = 1 ({where}), rank 0: {timed[0].seconds_per_round * 1e3:.3f} ms a round (median), "
+            f"phase seconds a round {timed[0].phase_seconds}, exposed comm {timed[0].exposed_comm_s:.4g} s of "
+            f"{timed[0].total_comm_s:.4g} s over {ROUNDS} rounds (overlap efficiency "
+            f"{timed[0].overlap_efficiency:.3g}); {smi}")
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[mesh] the phase took {out['phase_s']:.1f} s (spawned ranks {out['spawned_s']:.1f} s)")
+    return out
+
+
+def device_line() -> None:
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def mesh_nccl_main(smi: str) -> None:
+    """``--mesh-nccl``: the mesh phase alone, its 2 × 2 mesh over NCCL with
+    one rank a card (needs four cards), after building the kernels."""
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.device_count() >= MESH_P * MESH_P,
+          f"--mesh-nccl needs {MESH_P * MESH_P} cards, found {torch.cuda.device_count()}")
+    _build.build_all()
+    mesh = mesh_phase(smi, ranks_backend="nccl")
+    print(smi, flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    device_line()
+
+
 def main() -> None:
     # ---- phase 1: device ------------------------------------------------
     if not torch.cuda.is_available():
@@ -674,9 +906,13 @@ def main() -> None:
     check(bool(smi), "nvidia-smi printed nothing")
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if "--mesh-nccl" in sys.argv[1:]:
+        mesh_nccl_main(smi)
+        return
 
     from repro_torch.core import engine
     from repro_torch.core.comm import time_phase
+    from repro_torch.core.distributed import build_2d_problem
     from repro_torch.core.engine import (
         ParallelSGDSchedule, engine_comm_ledger, engine_phase_probes, run_engine_chunk, run_parallel_sgd,
     )
@@ -711,14 +947,7 @@ def main() -> None:
         f"on {tp.values.device} ({time.perf_counter() - t0:.1f} s to generate and stack)")
     check(tp.values.is_cuda and tp.values.dtype == torch.float32, "the problem is not float32 on the card")
 
-    def zero_counts() -> None:
-        ell_gram_and_v.launches.update(fp32=0, bf16=0)
-        sstep_inner.launches.update(fp32=0, bf16=0)
-
-    def counts() -> dict:
-        return {f"{name}.{mode}": fn.launches[mode]
-                for name, fn in (("ell_gram", ell_gram_and_v), ("sstep_inner", sstep_inner))
-                for mode in ("fp32", "bf16")}
+    zero_counts, counts = zero_launch_counts, launch_counts
 
     # ---- phase 3: each kernel against its plain version, on the card ----
     # worst max abs error against the plain version, by (kernel, mode); the
@@ -803,6 +1032,32 @@ def main() -> None:
     log(f"[kernels] both kernels on {DATASET} bundles (team 0 first rows, team {P_R - 1} last rows): worst so far "
         + ", ".join(f"{k} {e:.3g}" for k, e in err.items()) + f"; {bitwise} two-launch checks of ell_gram and "
         f"{inner_bitwise} of sstep_inner bitwise equal")
+
+    # the Gram kernel on the bundles the 2 × 2 mesh feeds it: a column shard's
+    # block (p_c = 2), ids < n_loc, the mesh layout's ELL width
+    prob2, _ = build_2d_problem(ds.A, ds.y, MESH_P, MESH_P, "cyclic", row_multiple=S * B)
+    x_loc = torch.from_numpy(np.random.default_rng(301).standard_normal(prob2.n_loc).astype(np.float32) * 0.1).to(device)
+    for i, j, r0 in ((0, 1, 0), (MESH_P - 1, 0, prob2.rows_local - S * B)):
+        idx = prob2.indices[i, j, r0 : r0 + S * B].to(device).contiguous()
+        val = prob2.values[i, j, r0 : r0 + S * B].to(device).contiguous()
+        worst = {}
+        for mode in ("fp32", "bf16"):
+            g, v = ell_gram_and_v(idx, val, x_loc, n=prob2.n_loc, precision=mode)
+            g2, v2 = ell_gram_and_v(idx, val, x_loc, n=prob2.n_loc, precision=mode)
+            check(bool(torch.all(torch.triu(g) == 0)), f"ell_gram {mode}: triu(G) != 0 on a column shard")
+            check(torch.equal(g, g2) and torch.equal(v, v2), f"ell_gram {mode}: two launches differ on a column shard")
+            bitwise += 1
+            pg, pv = ell_gram_and_v_blocked(idx, val, x_loc, n=prob2.n_loc, bk=512, precision=mode)
+            check(float(pg.abs().max()) > 0, "the column-shard bundle has an empty Gram matrix")
+            for got, want, name in ((g, pg, "G"), (v, pv, "v")):
+                max_abs, max_rel, ok = errors(got, want, GV_TOL)
+                check(ok and math.isfinite(max_abs),
+                      f"ell_gram {mode} {name} on block ({i}, {j}): max abs {max_abs}, max rel {max_rel}")
+                err[f"ell_gram.{mode}"] = max(err[f"ell_gram.{mode}"], max_abs)
+                worst[mode] = max(worst.get(mode, 0.0), max_abs)
+        log(f"[kernels] ell_gram    column shard ({i}, {j}) of the {MESH_P} × {MESH_P} mesh, rows {r0}.. "
+            f"(sb, w, n_loc) = {(S * B, prob2.width, prob2.n_loc)}: max abs err fp32 {worst['fp32']:.3g}, "
+            f"bf16 {worst['bf16']:.3g} (tol {GV_TOL}), a second launch bitwise equal")
 
     # ---- phase 4: the main path at full width ---------------------------
     sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=1)
@@ -991,9 +1246,18 @@ def main() -> None:
     # label: (sb, s, b, bundle(k), bundles a timed pass, x, n) — the main
     # path's bundle, one four times as tall, and news20's width; the
     # corrections are timed at the first two (their time does not depend on w)
+    # column shard (0, 0) of the 2 × 2 mesh: the bundles each mesh rank feeds it
+    col_idx, col_val = prob2.indices[0, 0].to(device), prob2.values[0, 0].to(device)
+    col_offsets = list(range(0, prob2.rows_local - S * B + 1, S * B))
+
+    def col_bundle(k):
+        r0 = col_offsets[k % len(col_offsets)]
+        return col_idx[r0 : r0 + S * B], col_val[r0 : r0 + S * B]
+
     shapes = {"sb128": (S * B, S, B, *team_bundles(S * B), x_now, tp.n),
               "sb512": (512, 16, 32, *team_bundles(512), x_now, tp.n),
-              "w540": (128, None, None, lambda k: (news_idx, news_val), 8, news_x, NEWS20_N)}
+              "w540": (128, None, None, lambda k: (news_idx, news_val), 8, news_x, NEWS20_N),
+              "col2": (S * B, None, None, col_bundle, len(col_offsets), x_loc, prob2.n_loc)}
     report = {}
     inner_inputs = {}  # label: (s, b, G, v) — the corrections' timed inputs
     for label, (sb, s, b, bundle, per_pass, x_in, n_cols) in shapes.items():
@@ -1088,6 +1352,10 @@ def main() -> None:
     front = front_door_phase(tp, zero_counts, counts, smi)
     print(json.dumps({"front_door": front}), flush=True)
 
+    # ---- the 2D mesh: 1 × 1 over NCCL, 2 × 2 of four processes on the card --
+    mesh = mesh_phase(smi)
+    print(json.dumps({"mesh": mesh}), flush=True)
+
     # ---- phase 6: the kernels line, the device lines ---------------------
     # each (kernel, mode) with its launches on the path that runs it: the
     # synchronous fp32 path for both fp32 modes, the D = 2 bf16 path for the
@@ -1110,7 +1378,8 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "eager_ms": row["eager_ms"],
             "design_ops_ms": row["design_ops_ms"], "launch_floor_ms": launch_floor_ms,
             "shape": {"sb": S * B, "w": int(team_idx.shape[1]), "n": tp.n},
-            **{label: {k: report[label][key][k] for k in TIMED_KEYS} for label in ("sb512", "w540") if key in report[label]},
+            **{label: {k: report[label][key][k] for k in TIMED_KEYS} for label in ("sb512", "w540", "col2")
+               if key in report[label]},
         })
         if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
             kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
@@ -1121,8 +1390,7 @@ def main() -> None:
                       "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
                       "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
                       "ledger_delay2_bf16": led16.to_dict(), "ab": ab, "sweep": sweep}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    device_line()
 
 
 if __name__ == "__main__":

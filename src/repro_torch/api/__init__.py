@@ -17,9 +17,10 @@ checkpoint written by either resumes in the other.
 
 Every entry point that runs takes ``device=None`` — the CUDA device, or
 an error when there is none; ``device="cpu"`` runs the plain PyTorch
-versions. The simulated backend is the one the port has: a spec with
-``backend="shard_map"``, ``bk=None`` or a stream raises
-``NotImplementedError`` naming the ROADMAP.md item it waits for.
+versions. ``backend="shard_map"`` runs on the 2D process mesh: every rank
+of an initialized default process group of p_r·p_c ranks makes the same
+call. A spec with ``bk=None`` or a stream raises ``NotImplementedError``
+naming the ROADMAP.md item it waits for.
 """
 
 from repro_torch.api.spec import (

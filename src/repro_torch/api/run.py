@@ -1,20 +1,29 @@
 """run(spec) — build once, execute through a Session, report uniformly.
 
-``build_problem`` makes the stacked row teams (and the global problem
-for the loss) from the spec, on the device the caller names; ``run`` is
-a thin loop over the round-incremental ``repro_torch.api.Session``,
-which drives the ``ParallelSGDSchedule`` through the simulated engine
-(``repro_torch.core.engine.run_engine_chunk`` — exact simulated-rank
-semantics on one device; p_c is communication-only there).
+``build_problem`` makes what the spec's backend runs, on the device the
+caller names; ``run`` is a thin loop over the round-incremental
+``repro_torch.api.Session``, which dispatches the same
+``ParallelSGDSchedule`` to either executor:
 
-``backend="shard_map"`` (the 2D device mesh) is a valid spec, and is
-refused here until the mesh backend is ported. Chunked session
-execution is bitwise-identical to the monolithic engine path on the CPU
-(on CUDA the Yᵀu scatter-add is atomic, so two runs agree to a stated
-tolerance, not to the bit).
+  backend="simulated"  repro_torch.core.engine.run_engine_chunk — exact
+                       simulated-rank semantics on one device (the
+                       oracle; p_c is communication-only there).
+  backend="shard_map"  repro_torch.core.distributed.HybridDriver — the
+                       2D mesh, one process per mesh device: every rank
+                       of an initialized default process group of p_r·p_c
+                       ranks calls ``run(spec)`` (``torchrun``, or
+                       ``torch.distributed.init_process_group`` in each
+                       process), and each holds its own (i, j) block.
 
-Device rule: ``device=None`` means the CUDA device and raises when there
-is none; ``device="cpu"`` runs the plain PyTorch versions on the CPU.
+Both return the same ``RunReport`` (on the mesh, every rank returns the
+same weights and loss trace). Chunked session execution is
+bitwise-identical to the monolithic engine path on the CPU (on CUDA the
+Yᵀu scatter-add is atomic, so two runs agree to a stated tolerance, not to
+the bit).
+
+Device rule: ``device=None`` means the CUDA device (``cuda:(rank %
+device_count)`` on a mesh rank) and raises when there is none;
+``device="cpu"`` runs the plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -27,23 +36,33 @@ import numpy as np
 from repro_torch._device import resolve_device
 from repro_torch.api.report import RunReport
 from repro_torch.api.spec import ExperimentSpec
+from repro_torch.core.distributed import Hybrid2DProblem, build_2d_problem
+# the reference's name for "this process's place on the mesh": raises, saying
+# how to start one, without a default process group of p_r·p_c ranks
+from repro_torch.core.distributed import make_process_mesh as _make_device_mesh  # noqa: F401
 from repro_torch.core.objective import get_objective
 from repro_torch.core.problem import Problem, make_problem
 from repro_torch.core.teams import TeamProblem, stack_row_teams
+from repro_torch.sparse.partition import ColumnPartition
 from repro_torch.sparse.synthetic import SyntheticDataset, make_dataset
 
 
 @dataclasses.dataclass
 class ProblemBundle:
-    """Everything ``run`` needs, built once from the spec: the stacked
-    row teams the engine runs, and the global problem for loss traces
-    and the final objective, both on ``team``'s device."""
+    """Everything ``run`` needs, built once from the spec.
+
+    Exactly one of (team, prob2d) is populated, per the backend: the
+    stacked row teams the engine runs (on the device), or the mesh's host
+    layout and column partition. The global problem (loss traces and the
+    final objective) is always present, on the device."""
 
     spec: ExperimentSpec
     dataset: SyntheticDataset
     global_problem: Problem
     row_multiple: int
-    team: TeamProblem
+    team: TeamProblem | None = None
+    prob2d: Hybrid2DProblem | None = None
+    cp: ColumnPartition | None = None
 
 
 # Dataset materialization is deterministic in (name, seed) and is the
@@ -64,24 +83,28 @@ def _cached_dataset(name: str, seed: int = 0) -> SyntheticDataset:
 
 
 def build_problem(spec: ExperimentSpec, device=None) -> ProblemBundle:
-    """Materialize the dataset and stack its row teams on ``device``.
-    Row padding is ``spec.row_multiple`` (default s·b); the spec's
-    objective (+ l2) rides on every problem object, so the engine and
-    the loss probes read the same convex loss."""
+    """Materialize the dataset and partition it for the spec's backend,
+    on ``device``. Row padding is ``spec.row_multiple`` (default s·b) on
+    both paths so simulated and distributed sample sequences agree; the
+    spec's objective (+ l2) rides on every problem object, so both
+    executors and the loss probes read the same convex loss."""
     sched, mesh = spec.schedule, spec.mesh
-    if mesh.backend != "simulated":
-        raise NotImplementedError(
-            f"backend={mesh.backend!r} needs the 2D-mesh backend (core/distributed.py, "
-            f"ROADMAP.md Queue 1 item 8), which the port does not have yet; use "
-            f"backend='simulated'"
-        )
     device = resolve_device(device)
     ds = _cached_dataset(spec.dataset, seed=spec.seed)
     rm = spec.row_multiple or sched.s * sched.b
     obj = get_objective(spec.objective, l2=spec.l2)
     gp = make_problem(ds.A, ds.y, row_multiple=rm, objective=obj, device=device)
-    team = stack_row_teams(ds.A, ds.y, mesh.p_r, row_multiple=rm, objective=obj, device=device)
-    return ProblemBundle(spec=spec, dataset=ds, global_problem=gp, row_multiple=rm, team=team)
+    bundle = ProblemBundle(spec=spec, dataset=ds, global_problem=gp, row_multiple=rm)
+    if mesh.backend == "simulated":
+        bundle.team = stack_row_teams(
+            ds.A, ds.y, mesh.p_r, row_multiple=rm, objective=obj, device=device
+        )
+    else:
+        bundle.prob2d, bundle.cp = build_2d_problem(
+            ds.A, ds.y, mesh.p_r, mesh.p_c, mesh.partitioner, row_multiple=rm,
+            objective=obj,
+        )
+    return bundle
 
 
 def run(spec: ExperimentSpec, x0: np.ndarray | None = None, device=None) -> RunReport:

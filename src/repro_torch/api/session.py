@@ -13,15 +13,23 @@ changing a single iterate:
     sess2 = Session.restore("ckpt/run1") # later / elsewhere
     report2 = sess2.run()                # finish under the StopPolicy
 
-The simulated engine advances through
-``repro_torch.core.engine.run_engine_chunk``: the carry is the weight
-vector on the device, and the round offset is a host integer, so the
+Both backends are chunkable underneath: the simulated engine advances
+through ``repro_torch.core.engine.run_engine_chunk`` (the carry is the
+weight vector on the device) and the 2D mesh through
+``repro_torch.core.distributed.HybridDriver`` (each rank's carry is its
+weight shard on its device). The round offset is a host integer, so the
 bundle rows a round reads depend only on the global round index.
 Chunked execution runs the same per-round body over the same global
-round indices as the monolithic ``run_parallel_sgd`` — bitwise equal on
-the CPU; on CUDA the Yᵀu scatter-add is atomic, so two runs agree to a
-stated tolerance, not to the bit. That is what makes save/restore and
-early stopping safe to use in time-to-loss experiments.
+round indices as the monolithic path — bitwise equal on the CPU; on
+CUDA the Yᵀu scatter-add is atomic, so two runs agree to a stated
+tolerance, not to the bit. That is what makes save/restore and early
+stopping safe to use in time-to-loss experiments.
+
+On the mesh (``backend="shard_map"``) every rank of the default process
+group builds the same ``Session`` and makes the same calls: the loss
+probe, ``current_x`` and ``save`` gather the weights with a collective.
+Only rank 0 writes a checkpoint (``save``, autosave) while the other
+ranks wait at a barrier; every rank reads one on restore.
 
 ``run()`` is a thin loop over ``step_rounds`` that honors the spec's
 ``StopPolicy`` (``target_loss`` / ``max_seconds`` / ``max_rounds``) —
@@ -33,9 +41,8 @@ spec, never part of a hash. ``device=None`` means the CUDA device and
 raises when there is none. The session and checkpoint format is the
 reference package's, so a checkpoint written by either resumes in the
 other. Not in the port yet, and refused with ``NotImplementedError``:
-the mesh backend (``backend="shard_map"``), the panel autotuner
-(``bk=None``) and the streaming door (``step_stream``, a spec with
-``stream.enabled``).
+the panel autotuner (``bk=None``) and the streaming door
+(``step_stream``, a spec with ``stream.enabled``).
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ from repro_torch.api.plan import Plan, plan, replan_mesh
 from repro_torch.api.report import RunReport, modeled_comm_words
 from repro_torch.api.spec import ExperimentSpec, MeshSpec
 from repro_torch.core import faults
-from repro_torch.core.comm import CommLedger, time_dispatch, time_phase
+from repro_torch.core.comm import MESH, TIMED, CommLedger, time_dispatch, time_phase
+from repro_torch.core.distributed import HybridDriver, on_rank0
 from repro_torch.core.engine import (
     engine_comm_ledger,
     engine_loss,
@@ -113,7 +121,8 @@ class RoundEvent:
 
 
 class Session:
-    """An open, resumable run of one ``ExperimentSpec`` on one device.
+    """An open, resumable run of one ``ExperimentSpec`` on one device
+    (on the mesh: this rank's part of it, on this rank's device).
 
     Construction plans the spec (autotune included — ``self.spec`` is
     the spec as executed) and builds the problem once on ``device``;
@@ -132,7 +141,7 @@ class Session:
     ):
         # imported here: repro_torch.api.run imports Session for its thin
         # run() wrapper, so the build machinery import must be lazy.
-        from repro_torch.api.run import build_problem
+        from repro_torch.api.run import _make_device_mesh, build_problem
 
         if spec.stream.enabled:
             raise NotImplementedError(
@@ -159,11 +168,28 @@ class Session:
         # wall must not masquerade as steady-state solve time)
         self._first_chunk_pending = True
 
-        self._x = torch.from_numpy(x0.copy()).to(self.device)
-        self._gp = global_problem(self.bundle.team)
-        # the counted-comm ledger: the round body's collectives,
-        # captured on meta tensors from the problem actually built
-        self.ledger = engine_comm_ledger(self.spec.schedule, n, tp=self.bundle.team)
+        if self.spec.mesh.backend == "simulated":
+            self._driver = None
+            self._x = torch.from_numpy(x0.copy()).to(self.device)
+            self._gp = global_problem(self.bundle.team)
+            # the counted-comm ledger: the round body's collectives,
+            # captured on meta tensors from the problem actually built
+            self.ledger = engine_comm_ledger(self.spec.schedule, n, tp=self.bundle.team)
+        else:
+            mesh = _make_device_mesh(self.spec.mesh.p_r, self.spec.mesh.p_c)
+            self._driver = HybridDriver(
+                mesh,
+                self.bundle.prob2d,
+                self.bundle.cp,
+                x0,
+                self.spec.schedule,
+                loss_problem=self.bundle.global_problem,
+                comm=TIMED if self.spec.comm_timing else MESH,
+                device=self.device,
+            )
+            self._x = None
+            self._gp = None
+            self.ledger = self._driver.ledger  # the driver commits rounds
 
     # ---- state probes ----
 
@@ -178,13 +204,20 @@ class Session:
 
     def current_x(self) -> np.ndarray:
         """Current global weights (a host copy, never a view of the
-        carry; waits for pending work)."""
+        carry; waits for pending work). On the mesh a collective: every
+        rank gathers the same bits."""
+        if self._driver is not None:
+            return self._driver.gather()
         return self._x.to("cpu", copy=True).numpy()
 
     # ---- the incremental core ----
 
     def _advance(self, k: int) -> None:
         """Run k rounds on the carry (no loss sampling)."""
+        if self._driver is not None:
+            self._driver.advance(k)  # commits (and, timed, measures) rounds
+            self.rounds_done += k
+            return
         if self.spec.comm_timing:
             # timed: advance one round at a time, waiting for the device
             # each round, so the ledger gets a per-round wall — the
@@ -206,7 +239,9 @@ class Session:
 
     def _sync(self) -> None:
         """Wait for the carry without a host copy."""
-        if self._x.is_cuda:
+        if self._driver is not None:
+            self._driver.sync()
+        elif self._x.is_cuda:
             torch.cuda.synchronize(self._x.device)
 
     def _traced_advance(self, sub: int, first: bool) -> None:
@@ -235,7 +270,10 @@ class Session:
         is never split. Runs outside the wall/compile accounting
         windows; each probed phase also lands as a trace span when a
         recorder is installed."""
-        probes = engine_phase_probes(self.bundle.team, self.spec.schedule)
+        if self._driver is not None:
+            probes = self._driver.phase_probes()
+        else:
+            probes = engine_phase_probes(self.bundle.team, self.spec.schedule)
         rec = obs_trace.active()
         delay = self.spec.schedule.delay
         phases = {}
@@ -266,6 +304,8 @@ class Session:
         self.ledger.set_phase_seconds(phases)
 
     def _sample_loss(self) -> float:
+        if self._driver is not None:
+            return self._driver.loss()
         return float(engine_loss(self._gp, self._x))
 
     def step_rounds(self, k: int | None = None) -> RoundEvent:
@@ -340,7 +380,7 @@ class Session:
             # the policy is checked at every boundary, not once per
             # call: a target crossed mid-step stops the step there.
             self._check_stop(
-                sampled, wall=self.wall_time_s + (time.perf_counter() - t0)
+                sampled, wall=self._agreed_wall(self.wall_time_s + (time.perf_counter() - t0))
             )
             if autosaving and self.rounds_done % autosave_every == 0:
                 # preemption-safe: the carry is durable at this boundary
@@ -374,6 +414,18 @@ class Session:
             "ROADMAP.md Queue 1 item 11), which the port does not have yet"
         )
 
+    def _agreed_wall(self, wall: float) -> float:
+        """The wall the ``max_seconds`` verdict reads. On the mesh every
+        rank must reach the same verdict at the same boundary (a rank that
+        stops alone would leave the others in a collective), so the ranks
+        agree on the largest of their walls — one all-reduce, only when
+        ``max_seconds`` is set."""
+        if self._driver is None or self.spec.stop.max_seconds is None:
+            return wall
+        t = torch.tensor([wall], dtype=torch.float64, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return float(t)
+
     def _check_stop(self, loss: float | None, wall: float | None = None) -> None:
         # target_loss is checked first: a crossing on the final budgeted
         # round is still a hit (the §7.5 verdict the benchmarks persist),
@@ -401,12 +453,15 @@ class Session:
 
     def report(self) -> RunReport:
         """The uniform ``RunReport`` for the rounds completed so far."""
-        final_loss = float(problem_loss(self.bundle.global_problem, self._x))
+        x = self.current_x()
+        final_loss = float(problem_loss(
+            self.bundle.global_problem, torch.from_numpy(x).to(self.device)
+        ))
         return RunReport(
             spec=self.spec,
             plan=self._plan,
             backend=self.spec.mesh.backend,
-            x=self.current_x(),
+            x=x,
             losses=np.asarray(self.losses, np.float32),
             final_loss=final_loss,
             wall_time_s=self.wall_time_s,
@@ -432,17 +487,27 @@ class Session:
 
     def save(self, path) -> None:
         """Checkpoint the session carry at the current round boundary
-        (atomic; keyed by the input spec's content hash)."""
-        save_session_checkpoint(
-            path,
-            spec_dict=self.input_spec.to_dict(),
-            spec_hash=self.input_spec.content_hash(),
-            rounds_done=self.rounds_done,
-            x=self.current_x(),
-            losses=np.asarray(self.losses, np.float32),
-            wall_time_s=self.wall_time_s,
-            compile_time_s=self.compile_time_s,
-        )
+        (atomic; keyed by the input spec's content hash). On the mesh
+        every rank gathers x, rank 0 alone writes, and every rank waits
+        at a barrier until the files are in place."""
+        x = self.current_x()
+
+        def write():
+            save_session_checkpoint(
+                path,
+                spec_dict=self.input_spec.to_dict(),
+                spec_hash=self.input_spec.content_hash(),
+                rounds_done=self.rounds_done,
+                x=x,
+                losses=np.asarray(self.losses, np.float32),
+                wall_time_s=self.wall_time_s,
+                compile_time_s=self.compile_time_s,
+            )
+
+        if self._driver is None:
+            write()
+        else:
+            on_rank0(write, self.device)
 
     @classmethod
     def restore(
@@ -497,7 +562,9 @@ class Session:
         is used as given. The checkpoint's weights seed a session built
         for the new geometry, the loss trace and round counter carry
         over, and the run continues from the last round boundary.
-        ``device`` is where this process runs the simulated mesh.
+        ``device`` is where this process runs (the simulated mesh, or this
+        rank's block of a ``shard_map`` mesh, whose ELL shards are rebuilt
+        for the new partition).
 
         At an *unchanged* mesh this is exactly ``restore`` (bitwise-
         identical continuation on the CPU). At a changed p_c the
@@ -534,6 +601,8 @@ class Session:
         worth); measured per-round seconds stay per-process — a fresh
         process starts cold and re-times."""
         sess.rounds_done = ck.rounds_done
+        if sess._driver is not None:
+            sess._driver.rounds_done = ck.rounds_done
         sess.ledger.rounds = ck.rounds_done
         sess.losses = [float(v) for v in ck.losses]
         sess.wall_time_s = ck.wall_time_s

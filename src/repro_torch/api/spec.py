@@ -198,10 +198,9 @@ class MeshSpec:
                 shards).
     backend     "simulated" — exact rank semantics on one device via
                 the unified engine (repro_torch.core.engine);
-                "shard_map" — real device mesh execution: a valid name
-                in a spec (so the reference's mesh specs parse and hash
-                the same), which the port's ``Session`` refuses until
-                the mesh backend is ported.
+                "shard_map" — real mesh execution, one process per mesh
+                device (repro_torch.core.distributed), over an initialized
+                default process group of p_r·p_c ranks.
     partitioner column partitioner for the shard_map layout (§6.5);
                 ignored by the simulated backend (p_c is
                 communication-only and never changes the numerics).

@@ -25,6 +25,11 @@ around ``run()``:
 
 ``max_points`` bounds how many *unfinished* points one invocation runs
 — the building block for budgeted/interruptible sweeps.
+
+A ``backend="shard_map"`` point runs on the process mesh: every rank of
+the default process group calls ``sweep`` with the same specs and runs
+the point through its ``Session``; rank 0 alone writes the resume record
+and discards the spent autosave, and the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from repro_torch._device import resolve_device
 from repro_torch.api.report import RunReport
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core import faults
+from repro_torch.core.distributed import on_rank0
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.train.checkpoint import (
     CheckpointCorruptError,
@@ -174,6 +180,14 @@ def _record_path(resume_dir: Path, spec: ExperimentSpec) -> Path:
     return resume_dir / f"{spec.content_hash()}.report.json"
 
 
+def _write(spec: ExperimentSpec, device, write) -> None:
+    """Write a point's file: on the mesh rank 0 alone, the others wait."""
+    if spec.mesh.backend == "shard_map":
+        on_rank0(write, device)
+    else:
+        write()
+
+
 def _open_session(spec, autosave_dir: Path | None, x0, device):
     """A session for one sweep attempt: resume from the point's
     autosave when a loadable one exists; a torn or foreign autosave is
@@ -187,7 +201,7 @@ def _open_session(spec, autosave_dir: Path | None, x0, device):
         except FileNotFoundError:
             pass
         except (CheckpointCorruptError, SpecMismatchError):
-            discard_session_checkpoint(base)
+            _write(spec, device, lambda: discard_session_checkpoint(base))
     return Session(spec, x0=x0, autosave_dir=autosave_dir, device=device)
 
 
@@ -289,12 +303,14 @@ def sweep(
             )
             continue
         if resume_dir is not None:
-            rec = _record_path(resume_dir, spec)
-            tmp = rec.with_suffix(".tmp")
-            tmp.write_text(report.to_json())
-            tmp.replace(rec)
-            # the point is durably finished — its autosave is spent
-            discard_session_checkpoint(autosave_base(resume_dir, spec))
+            def finish(rec=_record_path(resume_dir, spec), report=report):
+                tmp = rec.with_suffix(".tmp")
+                tmp.write_text(report.to_json())
+                tmp.replace(rec)
+                # the point is durably finished — its autosave is spent
+                discard_session_checkpoint(autosave_base(resume_dir, spec))
+
+            _write(spec, device, finish)
         reports.append(report)
         resumed.append(False)
         attempts_log.append(attempts)

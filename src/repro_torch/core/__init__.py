@@ -11,6 +11,16 @@ The unified engine (repro_torch.core.engine) implements the whole
   engine_comm_ledger   what a schedule's rounds communicate (CommLedger
                        of CommRates, captured from the round body)
 
+The 2D-mesh backend (repro_torch.core.distributed), one process per
+mesh device over ``torch.distributed``:
+
+  run_hybrid_distributed  HybridSGD on a p_r × p_c process mesh
+                          (consumes the same ParallelSGDSchedule and
+                          shares the engine's bundle primitive)
+  HybridDriver         the round-incremental form of the same executor
+                       (device-resident shard; advance k rounds at a
+                       time — what repro_torch.api.Session drives)
+
 Configured corners, kept as thin wrappers:
 
   run_sgd              Algorithm 1 — sequential mini-batch SGD
@@ -19,7 +29,19 @@ Configured corners, kept as thin wrappers:
   run_hybrid_sgd       HybridSGD, exact simulated-rank semantics
 """
 
-from repro_torch.core.comm import COUNTING, Collectives, CommLedger, CommRate
+from repro_torch.core.comm import COUNTING, MESH, TIMED, Collectives, CommLedger, CommRate
+from repro_torch.core.distributed import (
+    Hybrid2DProblem,
+    HybridDriver,
+    ProcessMesh,
+    build_2d_problem,
+    gather_x,
+    hybrid_comm_ledger,
+    make_hybrid_step,
+    make_process_mesh,
+    run_hybrid_distributed,
+    scatter_x,
+)
 from repro_torch.core.engine import (
     GRAM_METHODS,
     ParallelSGDSchedule,
@@ -61,10 +83,13 @@ from repro_torch.core.teams import (
 
 __all__ = [
     "COUNTING",
+    "MESH",
+    "TIMED",
     "Collectives",
     "CommLedger",
     "CommRate",
     "engine_comm_ledger",
+    "hybrid_comm_ledger",
     "GRAM_METHODS",
     "ParallelSGDSchedule",
     "bundle_gram_v",
@@ -97,4 +122,13 @@ __all__ = [
     "team_problem_from_numpy",
     "run_sstep_sgd",
     "sstep_bundle",
+    "Hybrid2DProblem",
+    "HybridDriver",
+    "ProcessMesh",
+    "build_2d_problem",
+    "gather_x",
+    "make_hybrid_step",
+    "make_process_mesh",
+    "run_hybrid_distributed",
+    "scatter_x",
 ]

@@ -8,16 +8,21 @@ issued — op, mesh axis, span, payload words, bytes per word, calls per
 round — is recorded into a ``CommLedger`` that reports place next to
 the Hockney model's predictions (repro_torch.costmodel).
 
-One kind so far:
+Three kinds:
 
   counting   the simulated engine's ops. Numerically the identity /
              plain team mean (the simulated ranks already hold globally
              reduced values), but the call sites are the ones a mesh
              reduces over — so counting them *is* counting the
              algorithm's communication.
-
-The mesh and timed kinds (``allmean_rows`` and real collectives over
-``torch.distributed``) come with the mesh backend.
+  mesh       the 2D-mesh backend's ops (repro_torch.core.distributed):
+             ``torch.distributed.all_reduce`` over the "cols" process
+             group (the per-bundle (G, v) sum) and over the "rows" group
+             followed by a division by p_r (the per-round weight
+             average). The groups ride on the instance (``groups``),
+             bound by the driver from the ``ProcessMesh``.
+  timed      the mesh ops; the driver also waits for each round and
+             records its wall seconds (the §6.5 calibration input).
 
 Ledger capture is *structural*, not statistical: ``capture_rates`` runs
 the actual round body once on ``device="meta"`` tensors (shapes and
@@ -59,9 +64,12 @@ import time
 from contextvars import ContextVar
 
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "COUNTING",
+    "MESH",
+    "TIMED",
     "Collectives",
     "CommLedger",
     "CommRate",
@@ -70,7 +78,7 @@ __all__ = [
     "time_phase",
 ]
 
-COLLECTIVE_KINDS = ("counting",)
+COLLECTIVE_KINDS = ("counting", "mesh", "timed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,24 +396,68 @@ def _tree_word_bytes(tree) -> int:
     return int(max(sizes)) if sizes else 4
 
 
+@dataclasses.dataclass
+class _InFlight:
+    """An issued, not yet awaited mesh Allreduce: the tensors it reduces
+    in place and the ``torch.distributed`` work handles to wait on."""
+
+    tree: object
+    works: list
+
+
 @dataclasses.dataclass(frozen=True)
 class Collectives:
-    """The collective ops a round body issues, by kind. Frozen and
-    stateless: instances compare by ``kind``."""
+    """The collective ops a round body issues, by kind.
+
+    Instances compare by ``kind`` alone. The module singletons
+    ``COUNTING`` / ``MESH`` / ``TIMED`` name the three kinds; a mesh run
+    executes with ``bind(mesh)`` — the same kind carrying the rank's
+    "cols" and "rows" process groups (``groups``, a
+    ``repro_torch.core.distributed.ProcessMesh``). While a recorder is
+    installed (``capture_rates``) every kind records and returns its
+    input, so capture needs no process group. ``TIMED`` shares ``MESH``'s
+    ops — the timing itself is host-side, in the driver.
+    """
 
     kind: str = "counting"
+    groups: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.kind not in COLLECTIVE_KINDS:
             raise ValueError(f"kind={self.kind!r} not in {COLLECTIVE_KINDS}")
 
+    @property
+    def timed(self) -> bool:
+        return self.kind == "timed"
+
+    @property
+    def on_mesh(self) -> bool:
+        return self.kind in ("mesh", "timed")
+
+    def bind(self, groups) -> "Collectives":
+        """This kind, executing over ``groups`` (a ``ProcessMesh``)."""
+        return dataclasses.replace(self, groups=groups)
+
+    def _group(self, axis: str):
+        """The process group of ``axis`` for a mesh kind, or None when the
+        axis spans one rank (the collective is then the identity)."""
+        if self.groups is None:
+            raise RuntimeError(
+                f"{self.kind!r} collectives need a process mesh: bind one with "
+                f"Collectives.bind(mesh) (HybridDriver does)"
+            )
+        return self.groups.group(axis)
+
     # ---- the row-team (Gram) Allreduce: sum over column shards ----
 
     def allreduce_cols(self, tree, *, calls_per_round: int = 1,
                        words_per_call: int | None = None):
-        """Sum ``tree`` across column shards (the per-bundle (G, v)
-        Allreduce — Table 3's row-team payload). Identity on the
-        simulated engine: its ranks compute the full (G, v) directly.
+        """Sum ``tree`` across the "cols" mesh axis (the per-bundle (G, v)
+        Allreduce — Table 3's row-team payload).
+
+        counting: identity — the simulated ranks compute the full (G, v)
+        directly. mesh/timed: one ``all_reduce(SUM)`` per tensor over the
+        "cols" group, in place (the reference's two psums).
 
         ``words_per_call`` overrides the payload derived from the leaf
         shapes — the s = 1 engine corner uses it to account the full
@@ -415,6 +467,13 @@ class Collectives:
         if rec is not None:
             words = words_per_call if words_per_call is not None else _tree_words(tree)
             rec.add("allreduce", "cols", words, calls_per_round, _tree_word_bytes(tree))
+            return tree
+        if not self.on_mesh:
+            return tree
+        group = self._group("cols")
+        if group is not None:
+            for leaf in _tree_leaves(tree):
+                dist.all_reduce(leaf, op=dist.ReduceOp.SUM, group=group)
         return tree
 
     # ---- the split of the Gram Allreduce for the delay-D pipeline ----
@@ -422,24 +481,61 @@ class Collectives:
     # ``issue_allreduce_cols`` at bundle k starts the reduction,
     # ``await_allreduce`` at bundle k+D marks where its value is first
     # consumed. On the simulated engine the issue records the payload
-    # (same accounting as the fused call) and both are the identity.
+    # (same accounting as the fused call) and both are the identity; on
+    # the mesh the issue starts ``all_reduce(..., async_op=True)`` and the
+    # await waits on its work handles, so the D bundle-computes in between
+    # run while the reduction is in flight.
 
     def issue_allreduce_cols(self, tree, *, calls_per_round: int = 1,
                              words_per_call: int | None = None):
         """Start the per-bundle (G, v) Allreduce for a delayed schedule.
         Same reduction, recording and payload conventions as
-        ``allreduce_cols``."""
-        return self.allreduce_cols(
-            tree, calls_per_round=calls_per_round, words_per_call=words_per_call
-        )
+        ``allreduce_cols``; on the mesh it returns a handle for
+        ``await_allreduce``."""
+        rec = _RECORDER.get()
+        if rec is not None or not self.on_mesh:
+            return self.allreduce_cols(
+                tree, calls_per_round=calls_per_round, words_per_call=words_per_call
+            )
+        group = self._group("cols")
+        works = []
+        if group is not None:
+            works = [dist.all_reduce(leaf, op=dist.ReduceOp.SUM, group=group, async_op=True)
+                     for leaf in _tree_leaves(tree)]
+        return _InFlight(tree=tree, works=works)
 
     def await_allreduce(self, tree):
-        """Consume a previously issued Allreduce. Identity and never
-        recorded — the payload was counted at issue time; this marks
-        the critical-path join point."""
+        """Consume a previously issued Allreduce: wait for its work
+        handles on the mesh, the identity otherwise. Never recorded — the
+        payload was counted at issue time; this marks the critical-path
+        join point."""
+        if isinstance(tree, _InFlight):
+            for work in tree.works:
+                work.wait()
+            return tree.tree
         return tree
 
     # ---- the column Allreduce: average weights across row teams ----
+
+    def allmean_rows(self, x: torch.Tensor, *, calls_per_round: int = 1,
+                     words_per_call: int | None = None) -> torch.Tensor:
+        """Average the per-shard weight slab across the "rows" mesh axis
+        (the per-τ-iterations FedAvg sync — Table 3's column payload):
+        ``all_reduce(SUM)`` over the "rows" group, then ``/ p_r``.
+        Mesh/timed only; the simulated engine's stacked form is
+        ``allmean_teams``."""
+        rec = _RECORDER.get()
+        if rec is not None:
+            words = words_per_call if words_per_call is not None else _tree_words(x)
+            rec.add("allmean", "rows", words, calls_per_round, _tree_word_bytes(x))
+            return x
+        if not self.on_mesh:
+            return x
+        group = self._group("rows")
+        if group is None:
+            return x
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x / self.groups.p_r
 
     def allmean_teams(self, xs: torch.Tensor, *, words_per_call: int,
                       calls_per_round: int = 1) -> torch.Tensor:
@@ -454,6 +550,8 @@ class Collectives:
 
 
 COUNTING = Collectives("counting")
+MESH = Collectives("mesh")
+TIMED = Collectives("timed")
 
 
 def _block(out) -> None:

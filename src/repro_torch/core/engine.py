@@ -56,7 +56,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.core.comm import COUNTING, CommLedger, capture_rates
+from repro_torch.core.comm import COUNTING, Collectives, CommLedger, capture_rates
 from repro_torch.core.objective import LOGISTIC, LogisticObjective, Objective
 from repro_torch.core.problem import Problem, problem_loss
 from repro_torch.core.teams import TeamProblem, global_problem
@@ -325,14 +325,15 @@ def inner_corrections(
 # a skewed Gram to show that its limits can fail). Keep the calls late-bound.
 def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
                         sched: ParallelSGDSchedule, eta,
-                        objective: Objective = LOGISTIC):
+                        objective: Objective = LOGISTIC,
+                        comm: Collectives = COUNTING, gram: str | None = None):
     """The delay-D software pipeline over one round's τ/s bundles, for
     ``sched.delay ≥ 1`` (DaSGD, arXiv:2006.00441).
 
     At step t the body computes bundle t's (G, v) at the current
     (D-bundle-stale) iterate and *issues* its row-team Allreduce
-    (``COUNTING.issue_allreduce_cols``); the staged result waits in a D-deep
-    FIFO and is *consumed* (``COUNTING.await_allreduce`` → corrections →
+    (``comm.issue_allreduce_cols``); the staged result waits in a D-deep
+    FIFO and is *consumed* (``comm.await_allreduce`` → corrections →
     weight update) at step t+D. After the loop the last D staged entries
     drain, *before* the caller's parameter average: every round boundary
     carries only ``x``, so chunking and the τ-cadence averaging are
@@ -349,24 +350,31 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
     bf16 wire payload — exactly what the in-flight Allreduce carries.
     At s = 1 the pipeline still computes the full (G, v) (its
     distributed twin reduces the dense block), so a delayed FedAvg runs
-    both kernels."""
+    both kernels.
+
+    ``comm`` is the collectives the two backends issue through: the
+    simulated engine passes nothing (``COUNTING``), the 2D mesh its bound
+    mesh collectives (the issue then starts an asynchronous Allreduce
+    over the "cols" group and the await waits on it). ``gram`` overrides
+    ``sched.gram`` (None keeps it)."""
     s, b = sched.s, sched.b
+    gram = sched.gram if gram is None else gram
     lam = objective.l2
     scale = eta_over_b(eta, b)
     rho_s = float(_integer_pow(_decay(eta, lam), s)) if lam != 0.0 else None
 
     def compute_issue(x, t):
         idx, val = slice_bundle(t)
-        g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
+        g, v = bundle_gram_v(idx, val, x, n, gram=gram, bk=sched.bk,
                              bm=sched.bm, precision=sched.precision)
-        g, v = COUNTING.issue_allreduce_cols(
+        issued = comm.issue_allreduce_cols(
             wire_gv((g, v), sched.precision), calls_per_round=bundles
         )
-        return idx, val, g, v
+        return idx, val, issued
 
     def consume_apply(x, entry):
-        idx, val, g, v = entry
-        g, v = unwire_gv(COUNTING.await_allreduce((g, v)), sched.precision)
+        idx, val, issued = entry
+        g, v = unwire_gv(comm.await_allreduce(issued), sched.precision)
         u = inner_corrections(g, v, s, b, eta, objective)
         upd = scale * ell_rmatvec(EllBlock(indices=idx, values=val, n=n), u).to(x.dtype)
         return x + upd if lam == 0.0 else rho_s * x + upd

@@ -5,9 +5,12 @@
 ``metrics``  process-wide registry of typed Counter/Gauge/Histogram
              instruments with labeled snapshots and deltas.
 
-Both are host-side Python, the same modules as the reference package's.
-The trace exporters (Chrome trace-event JSON, JSONL event log) are not
-in the port yet.
+``export``   Chrome trace-event JSON and a JSONL event log of a
+             recorder, their loader and the per-category table
+             (``python -m repro_torch.launch.trace summarize PATH``).
+
+All three are host-side Python, the same modules as the reference
+package's; the trace files are the reference's format.
 """
 
 from repro_torch.obs.metrics import MetricsRegistry, registry

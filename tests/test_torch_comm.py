@@ -139,8 +139,10 @@ def test_recording_is_scoped_to_the_capture():
     rates = tcomm.capture_rates(body, spans={"cols": 2, "rows": 4})
     assert rates == (tcomm.CommRate("allreduce", "cols", 2, 20, 3, 4),
                      tcomm.CommRate("allmean", "rows", 4, 7, 1, 4))
+    # the mesh kinds exist; any other name is refused
+    assert tcomm.Collectives("mesh") == tcomm.MESH and tcomm.TIMED.timed
     with pytest.raises(ValueError, match="kind"):
-        tcomm.Collectives("mesh")
+        tcomm.Collectives("ring")
 
 
 def _phase_ledger(delay, gv=4.0, compute=1.5, pa=2.0, rounds=2):

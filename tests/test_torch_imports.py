@@ -29,7 +29,8 @@ SLICE_MODULES = [
     "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.train",
     "repro_torch.train.checkpoint", "repro_torch.api", "repro_torch.api.spec",
     "repro_torch.api.plan", "repro_torch.api.report", "repro_torch.api.run",
-    "repro_torch.api.session", "repro_torch.api.sweep",
+    "repro_torch.api.session", "repro_torch.api.sweep", "repro_torch.core.distributed",
+    "repro_torch.obs.export", "repro_torch.launch", "repro_torch.launch.trace",
 ]
 
 _IMPORT_ALL = """
