@@ -15,7 +15,8 @@ save → ``Session.restore`` → ``run`` → report, the delayed bf16 schedule, 
 stop policy, timed comm and a resumable sweep, with the launch counts of
 each run and the front door's cost a round beside ``run_engine_chunk``'s),
 then the 2D-mesh backend (``backend="shard_map"``) through ``run(spec)`` and
-``Session``: a 1 × 1 mesh on a world-size-1 NCCL group in this process, and
+``Session``: a 1 × 1 mesh on a world-size-1 NCCL group in this process
+(fp32, and bf16 at D = 1, which the fp32 run must miss), and
 a 2 × 2 mesh of four spawned processes sharing the card in a gloo group
 with CUDA tensors (fp32 at D = 0, bf16 at D = 1), each held against the
 simulated engine, with each rank's launch counts and comm ledger checked
@@ -99,6 +100,13 @@ P_R, S, B, TAU, ROUNDS, ETA = 4, 4, 32, 32, 8, 1.0
 # card, fp32 at D = 0 and bf16 at D = 1 (label: delay, precision)
 MESH_P = 2
 MESH_RUNS = {"fp32_d0": (0, "fp32"), "bf16_d1": (1, "bf16")}
+# max |Δx| of the 2 × 2 bf16 run to the simulated one: the mesh rounds each
+# shard's partial (G, v) to bf16 before the sum, the simulated engine the
+# total, so the two differ by a bf16 rounding (1.53e-6 measured on an H100;
+# limit ~30× that). The same run at D = 0 must land outside it. So must the
+# fp32 run for the 1 × 1 bf16 run, which has no partial sums and is held at
+# X_TOL: at p_c = 2 the double rounding is as large as bf16's own effect.
+MESH_BF16_DX = 5e-5
 
 
 def log(msg: str) -> None:
@@ -758,7 +766,8 @@ def mesh_rank(rank: int, world: int, store: str, out: str, device, backend: str)
 def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str = "gloo") -> dict:
     """The 2D-mesh backend at full width, through the front door:
     (a) a world-size-1 ``backend`` group driven by ``run(spec)`` with
-    ``backend="shard_map"`` on a 1 × 1 mesh; (b) four spawned processes in
+    ``backend="shard_map"`` on a 1 × 1 mesh, fp32 at D = 0 and bf16 at D = 1;
+    (b) four spawned processes in
     a ``ranks_backend`` group — gloo with CUDA tensors: a 2 × 2 mesh on the
     one card; NCCL (``--mesh-nccl``): a card each — fp32 at D = 0 and bf16
     at D = 1, then a timed run at D = 1. Each is held against the simulated engine on
@@ -789,11 +798,15 @@ def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str 
     with tempfile.TemporaryDirectory() as tmp:
         # (a) the 1 × 1 mesh, in this process
         spec1 = mesh_spec(1, 1, "shard_map")
+        spec1_bf16 = mesh_spec(1, 1, "shard_map", 1, "bf16")
         dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0, world_size=1)
         try:
             zero_launch_counts()
             rep1 = run(spec1, device=device)
             got1 = launch_counts()
+            zero_launch_counts()
+            rep1_bf16 = run(spec1_bf16, device=device)
+            got1_bf16 = launch_counts()
         finally:
             dist.destroy_process_group()
         sim1, _ = simulated(spec1)
@@ -810,6 +823,20 @@ def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str 
               f"1 × 1 mesh ledger {led1.rates} vs simulated {sim1.ledger.rates}")
         out["1x1"] = {"backend": backend, "launches": got1, "gap": gap1, "x_max": x_max1,
                       "losses": rep1.losses.tolist(), "wall_time_s": rep1.wall_time_s}
+        # bf16 at D = 1 on the 1 × 1 mesh: one (G, v) rounding, as in the
+        # simulated engine, so it is held at X_TOL, and the fp32 run must
+        # land outside that limit (the rounding is live)
+        x_sim1b = simulated(spec1_bf16)[0].current_x()
+        x_fp32_1b = simulated(mesh_spec(1, 1, "shard_map", 1, "fp32"))[0].current_x()
+        limit1b = X_TOL * float(np.abs(x_sim1b).max())
+        gap1b = float(np.abs(rep1_bf16.x - x_sim1b).max())
+        fp32_gap1b = float(np.abs(rep1_bf16.x - x_fp32_1b).max())
+        log(f"[mesh] 1 × 1 bf16 D = 1 through run(spec): launches {got1_bf16}; max |Δx| to the simulated engine "
+            f"{gap1b:.3g} (limit {limit1b:.3g}), to the simulated fp32 run {fp32_gap1b:.3g} (must exceed the limit)")
+        check(got1_bf16 == bf16, f"1 × 1 bf16 mesh: launches {got1_bf16}, expected {bf16}")
+        check(gap1b <= limit1b, f"1 × 1 bf16 mesh: {gap1b} from the simulated engine, limit {limit1b}")
+        check(fp32_gap1b > limit1b, f"1 × 1 bf16 mesh: the fp32 run is only {fp32_gap1b} away, limit {limit1b}")
+        out["1x1_bf16_d1"] = {"launches": got1_bf16, "gap": gap1b, "limit": limit1b, "fp32_gap": fp32_gap1b}
 
         # (b) the 2 × 2 mesh: four processes on the one card
         t0 = time.perf_counter()
@@ -828,7 +855,7 @@ def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str 
             check(all(np.array_equal(x, xs[0]) for x in xs), f"2 × 2 {label}: the ranks gathered different x")
             x_max = float(np.abs(x_sim).max())
             gap = float(np.abs(xs[0] - x_sim).max())
-            limit = X_TOL * x_max if precision == "fp32" else BF16_DX
+            limit = X_TOL * x_max if precision == "fp32" else MESH_BF16_DX
             want_launches = fp32 if precision == "fp32" else bf16
             word = 4 if precision == "fp32" else 2
             want_bytes = {"gram_bytes": float((S * B * S * B + S * B) * (TAU // S) * word),
@@ -852,7 +879,17 @@ def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str 
                 f"(simulated {sim.losses}); step wall {mesh_ms:.2f} ms (median, slowest rank) vs the simulated "
                 f"engine's {sim_ms:.2f} ms — a correctness run, not a comm measurement; {smi}")
             check(x_max > 0 and gap <= limit, f"2 × 2 {label}: max |Δx| {gap} to the simulated engine, limit {limit}")
-            out[label] = {"launches_per_rank": ranks[0][label]["launches"], "gap": gap, "limit": limit,
+            controls = {}
+            if precision == "bf16":
+                # the delay is live: the D = 0 run lands outside the limit;
+                # the fp32 run's gap is recorded (inside it: see MESH_BF16_DX)
+                for what, (d, prec) in (("d0_gap", (0, "bf16")), ("fp32_gap", (delay, "fp32"))):
+                    x_ctl = simulated(mesh_spec(MESH_P, MESH_P, "shard_map", d, prec))[0].current_x()
+                    controls[what] = float(np.abs(xs[0] - x_ctl).max())
+                log(f"[mesh] 2 × 2 {label}: max |Δx| to the simulated D = 0 run {controls['d0_gap']:.3g} (must exceed "
+                    f"{limit:.3g}), to the simulated fp32 run {controls['fp32_gap']:.3g}")
+                check(controls["d0_gap"] > limit, f"2 × 2 {label}: the D = 0 run is only {controls['d0_gap']} away")
+            out[label] = {**controls, "launches_per_rank": ranks[0][label]["launches"], "gap": gap, "limit": limit,
                           "x_max": x_max, "bytes_per_round": want_bytes, "losses": ranks[0][label]["losses"],
                           "sim_losses": sim.losses, "step_ms": mesh_ms, "sim_step_ms": sim_ms,
                           "walls_rank0": ranks[0][label]["walls"], "sim_walls": sim_walls,

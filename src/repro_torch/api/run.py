@@ -41,7 +41,6 @@ from repro_torch.core.distributed import Hybrid2DProblem, build_2d_problem
 # how to start one, without a default process group of p_r·p_c ranks
 from repro_torch.core.distributed import make_process_mesh as _make_device_mesh  # noqa: F401
 from repro_torch.core.objective import get_objective
-from repro_torch.core.problem import Problem, make_problem
 from repro_torch.core.teams import TeamProblem, stack_row_teams
 from repro_torch.sparse.partition import ColumnPartition
 from repro_torch.sparse.synthetic import SyntheticDataset, make_dataset
@@ -53,12 +52,12 @@ class ProblemBundle:
 
     Exactly one of (team, prob2d) is populated, per the backend: the
     stacked row teams the engine runs (on the device), or the mesh's host
-    layout and column partition. The global problem (loss traces and the
-    final objective) is always present, on the device."""
+    layout and column partition, of which each rank moves only its own
+    block to its device. Each executor computes the loss from what it
+    holds."""
 
     spec: ExperimentSpec
     dataset: SyntheticDataset
-    global_problem: Problem
     row_multiple: int
     team: TeamProblem | None = None
     prob2d: Hybrid2DProblem | None = None
@@ -84,7 +83,7 @@ def _cached_dataset(name: str, seed: int = 0) -> SyntheticDataset:
 
 def build_problem(spec: ExperimentSpec, device=None) -> ProblemBundle:
     """Materialize the dataset and partition it for the spec's backend,
-    on ``device``. Row padding is ``spec.row_multiple`` (default s·b) on
+    on ``device`` (the mesh's layout stays on the host). Row padding is ``spec.row_multiple`` (default s·b) on
     both paths so simulated and distributed sample sequences agree; the
     spec's objective (+ l2) rides on every problem object, so both
     executors and the loss probes read the same convex loss."""
@@ -93,8 +92,7 @@ def build_problem(spec: ExperimentSpec, device=None) -> ProblemBundle:
     ds = _cached_dataset(spec.dataset, seed=spec.seed)
     rm = spec.row_multiple or sched.s * sched.b
     obj = get_objective(spec.objective, l2=spec.l2)
-    gp = make_problem(ds.A, ds.y, row_multiple=rm, objective=obj, device=device)
-    bundle = ProblemBundle(spec=spec, dataset=ds, global_problem=gp, row_multiple=rm)
+    bundle = ProblemBundle(spec=spec, dataset=ds, row_multiple=rm)
     if mesh.backend == "simulated":
         bundle.team = stack_row_teams(
             ds.A, ds.y, mesh.p_r, row_multiple=rm, objective=obj, device=device

@@ -60,15 +60,15 @@ from repro_torch.api.report import RunReport, modeled_comm_words
 from repro_torch.api.spec import ExperimentSpec, MeshSpec
 from repro_torch.core import faults
 from repro_torch.core.comm import MESH, TIMED, CommLedger, time_dispatch, time_phase
-from repro_torch.core.distributed import HybridDriver, on_rank0
+from repro_torch.core.distributed import HybridDriver
 from repro_torch.core.engine import (
+    ParallelSGDSchedule,
     engine_comm_ledger,
     engine_loss,
     engine_phase_probes,
     run_engine_chunk,
 )
-from repro_torch.core.problem import problem_loss
-from repro_torch.core.teams import global_problem
+from repro_torch.core.teams import TeamProblem, global_problem
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.checkpoint import (
     SessionCheckpoint,
@@ -84,6 +84,58 @@ def autosave_base(directory: str | Path, spec: ExperimentSpec) -> Path:
     spec's content hash (dot-free stem: the checkpoint layer appends
     .npz/.json via with_suffix)."""
     return Path(directory) / f"autosave-{spec.content_hash()}"
+
+
+class _EngineDriver:
+    """The simulated engine behind ``HybridDriver``'s interface, so the
+    ``Session`` drives either executor through the same calls: the carry
+    is the global weight vector on the stacked teams' device, each round
+    ``run_engine_chunk``. With ``timed`` the rounds run one at a time,
+    waiting for the device each round, so the ledger gets a per-round
+    wall — the iterate sequence is unchanged (chunk size never changes
+    it)."""
+
+    def __init__(self, tp: TeamProblem, x0: np.ndarray, sched: ParallelSGDSchedule,
+                 timed: bool = False):
+        self.tp, self.sched, self.timed = tp, sched, timed
+        self.rounds_done = 0
+        self._x = torch.from_numpy(x0.copy()).to(tp.values.device)
+        self._gp = global_problem(tp)
+        # the counted-comm ledger: the round body's collectives, captured
+        # on meta tensors from the problem actually built
+        self.ledger = engine_comm_ledger(sched, tp.n, tp=tp)
+
+    def advance(self, k: int) -> None:
+        if self.timed:
+            for _ in range(int(k)):
+                t0 = time.perf_counter()
+                self._x = run_engine_chunk(self.tp, self._x, self.rounds_done, 1, self.sched)
+                self.sync()
+                self.ledger.add_round_seconds(time.perf_counter() - t0)
+                self.rounds_done += 1
+        else:
+            self._x = run_engine_chunk(self.tp, self._x, self.rounds_done, k, self.sched)
+            self.rounds_done += int(k)
+        self.ledger.rounds = self.rounds_done
+
+    def sync(self) -> None:
+        if self._x.is_cuda:
+            torch.cuda.synchronize(self._x.device)
+
+    def gather(self) -> np.ndarray:
+        return self._x.to("cpu", copy=True).numpy()
+
+    def loss(self) -> float:
+        return float(engine_loss(self._gp, self._x))
+
+    def phase_probes(self) -> dict:
+        return engine_phase_probes(self.tp, self.sched)
+
+    def write(self, fn) -> None:
+        fn()
+
+    def agreed_max(self, value: float) -> float:
+        return value
 
 
 @dataclasses.dataclass
@@ -169,12 +221,8 @@ class Session:
         self._first_chunk_pending = True
 
         if self.spec.mesh.backend == "simulated":
-            self._driver = None
-            self._x = torch.from_numpy(x0.copy()).to(self.device)
-            self._gp = global_problem(self.bundle.team)
-            # the counted-comm ledger: the round body's collectives,
-            # captured on meta tensors from the problem actually built
-            self.ledger = engine_comm_ledger(self.spec.schedule, n, tp=self.bundle.team)
+            self._driver = _EngineDriver(self.bundle.team, x0, self.spec.schedule,
+                                         timed=self.spec.comm_timing)
         else:
             mesh = _make_device_mesh(self.spec.mesh.p_r, self.spec.mesh.p_c)
             self._driver = HybridDriver(
@@ -183,13 +231,11 @@ class Session:
                 self.bundle.cp,
                 x0,
                 self.spec.schedule,
-                loss_problem=self.bundle.global_problem,
                 comm=TIMED if self.spec.comm_timing else MESH,
                 device=self.device,
             )
-            self._x = None
-            self._gp = None
-            self.ledger = self._driver.ledger  # the driver commits rounds
+        # the driver commits rounds (and, timed, measures them) into it
+        self.ledger = self._driver.ledger
 
     # ---- state probes ----
 
@@ -206,43 +252,18 @@ class Session:
         """Current global weights (a host copy, never a view of the
         carry; waits for pending work). On the mesh a collective: every
         rank gathers the same bits."""
-        if self._driver is not None:
-            return self._driver.gather()
-        return self._x.to("cpu", copy=True).numpy()
+        return self._driver.gather()
 
     # ---- the incremental core ----
 
     def _advance(self, k: int) -> None:
         """Run k rounds on the carry (no loss sampling)."""
-        if self._driver is not None:
-            self._driver.advance(k)  # commits (and, timed, measures) rounds
-            self.rounds_done += k
-            return
-        if self.spec.comm_timing:
-            # timed: advance one round at a time, waiting for the device
-            # each round, so the ledger gets a per-round wall — the
-            # iterate sequence is unchanged (chunk size never changes it).
-            for i in range(int(k)):
-                t0 = time.perf_counter()
-                self._x = run_engine_chunk(
-                    self.bundle.team, self._x, self.rounds_done + i, 1,
-                    self.spec.schedule,
-                )
-                self._sync()
-                self.ledger.add_round_seconds(time.perf_counter() - t0)
-        else:
-            self._x = run_engine_chunk(
-                self.bundle.team, self._x, self.rounds_done, k, self.spec.schedule
-            )
-        self.ledger.add_rounds(k)
+        self._driver.advance(k)
         self.rounds_done += k
 
     def _sync(self) -> None:
         """Wait for the carry without a host copy."""
-        if self._driver is not None:
-            self._driver.sync()
-        elif self._x.is_cuda:
-            torch.cuda.synchronize(self._x.device)
+        self._driver.sync()
 
     def _traced_advance(self, sub: int, first: bool) -> None:
         """One sub-chunk through the tracing seam: untraced, exactly the
@@ -270,10 +291,7 @@ class Session:
         is never split. Runs outside the wall/compile accounting
         windows; each probed phase also lands as a trace span when a
         recorder is installed."""
-        if self._driver is not None:
-            probes = self._driver.phase_probes()
-        else:
-            probes = engine_phase_probes(self.bundle.team, self.spec.schedule)
+        probes = self._driver.phase_probes()
         rec = obs_trace.active()
         delay = self.spec.schedule.delay
         phases = {}
@@ -304,9 +322,7 @@ class Session:
         self.ledger.set_phase_seconds(phases)
 
     def _sample_loss(self) -> float:
-        if self._driver is not None:
-            return self._driver.loss()
-        return float(engine_loss(self._gp, self._x))
+        return self._driver.loss()
 
     def step_rounds(self, k: int | None = None) -> RoundEvent:
         """Advance up to ``k`` rounds (default: to the next loss-sampling
@@ -420,11 +436,9 @@ class Session:
         stops alone would leave the others in a collective), so the ranks
         agree on the largest of their walls — one all-reduce, only when
         ``max_seconds`` is set."""
-        if self._driver is None or self.spec.stop.max_seconds is None:
+        if self.spec.stop.max_seconds is None:
             return wall
-        t = torch.tensor([wall], dtype=torch.float64, device=self.device)
-        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
-        return float(t)
+        return self._driver.agreed_max(wall)
 
     def _check_stop(self, loss: float | None, wall: float | None = None) -> None:
         # target_loss is checked first: a crossing on the final budgeted
@@ -454,9 +468,7 @@ class Session:
     def report(self) -> RunReport:
         """The uniform ``RunReport`` for the rounds completed so far."""
         x = self.current_x()
-        final_loss = float(problem_loss(
-            self.bundle.global_problem, torch.from_numpy(x).to(self.device)
-        ))
+        final_loss = self._driver.loss()
         return RunReport(
             spec=self.spec,
             plan=self._plan,
@@ -504,10 +516,7 @@ class Session:
                 compile_time_s=self.compile_time_s,
             )
 
-        if self._driver is None:
-            write()
-        else:
-            on_rank0(write, self.device)
+        self._driver.write(write)
 
     @classmethod
     def restore(
@@ -601,8 +610,7 @@ class Session:
         worth); measured per-round seconds stay per-process — a fresh
         process starts cold and re-times."""
         sess.rounds_done = ck.rounds_done
-        if sess._driver is not None:
-            sess._driver.rounds_done = ck.rounds_done
+        sess._driver.rounds_done = ck.rounds_done
         sess.ledger.rounds = ck.rounds_done
         sess.losses = [float(v) for v in ck.losses]
         sess.wall_time_s = ck.wall_time_s

@@ -63,16 +63,16 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.engine import _decay, _integer_pow
 from repro_torch.core.objective import LOGISTIC, Objective, get_objective
-from repro_torch.core.problem import Problem, problem_loss
 from repro_torch.kernels.sstep_inner import eta_over_b
 from repro_torch.sparse.csr import CSRMatrix
-from repro_torch.sparse.ell import EllBlock, ell_rmatvec
+from repro_torch.sparse.ell import EllBlock, ell_matvec, ell_rmatvec
 from repro_torch.sparse.partition import ColumnPartition, partition_columns, partition_rows
 
 __all__ = [
     "Hybrid2DProblem",
     "HybridDriver",
     "ProcessMesh",
+    "RankZeroWriteError",
     "build_2d_problem",
     "gather_x",
     "hybrid_comm_ledger",
@@ -278,16 +278,33 @@ def make_process_mesh(p_r: int, p_c: int) -> ProcessMesh:
     return mesh
 
 
+class RankZeroWriteError(RuntimeError):
+    """Raised on every other rank when rank 0's write failed (rank 0
+    raises the write's own error)."""
+
+
 def on_rank0(write, device: torch.device) -> None:
     """Run ``write()`` on rank 0 of the default process group alone, then
-    hold every rank at a barrier (a one-word all-reduce on ``device``, the
-    same call on gloo and NCCL) until it is done — how a mesh run writes a
-    checkpoint or a resume record that every rank may read next."""
-    try:
-        if dist.get_rank() == 0:
+    hold every rank at a barrier that carries its outcome (a one-word
+    all-reduce on ``device``, the same call on gloo and NCCL): 1 if the
+    write raised. Every rank raises when it did — rank 0 its own error, the
+    others ``RankZeroWriteError`` — so all ranks fail, and retry, together
+    instead of pairing their next collectives with a rank that unwound.
+    How a mesh run writes a checkpoint or a resume record that every rank
+    may read next."""
+    failed = torch.zeros(1, device=device)
+    error = None
+    if dist.get_rank() == 0:
+        try:
             write()
-    finally:
-        dist.all_reduce(torch.zeros(1, device=device))
+        except BaseException as err:
+            error = err
+            failed.fill_(1.0)
+    dist.all_reduce(failed)
+    if error is not None:
+        raise error
+    if failed.item():
+        raise RankZeroWriteError("rank 0 failed to write a file every rank waits for; see its error")
 
 
 # ---- the round body --------------------------------------------------------
@@ -430,8 +447,9 @@ class HybridDriver:
     wall seconds land in the ledger — the §6.5 calibration input.
 
     ``device=None`` means ``cuda:(rank % device_count)`` (or an error
-    without CUDA), as ``repro_torch.resolve_device`` rules; ``loss_problem``
-    is the global problem on that device.
+    without CUDA), as ``repro_torch.resolve_device`` rules. The rank holds
+    nothing of the problem but its block: ``loss`` too is computed from
+    the blocks.
     """
 
     def __init__(
@@ -441,7 +459,6 @@ class HybridDriver:
         cp: ColumnPartition,
         x0: np.ndarray,
         sched: ParallelSGDSchedule,
-        loss_problem: Problem | None = None,
         rounds_done: int = 0,
         comm: Collectives = MESH,
         device=None,
@@ -450,7 +467,6 @@ class HybridDriver:
         self.prob = prob
         self.cp = cp
         self.sched = sched
-        self.loss_problem = loss_problem
         self.rounds_done = int(rounds_done)
         self.comm = comm.bind(mesh)
         self.device = resolve_device(device)
@@ -460,6 +476,10 @@ class HybridDriver:
         i, j = mesh.row, mesh.col
         self._idx = prob.indices[i, j].to(self.device).contiguous()
         self._val = prob.values[i, j].to(self.device).contiguous()
+        # the real (unpadded) rows of this rank's row team: the loss masks
+        # the pads (a zero row has margin 0 and a nonzero loss)
+        rb = partition_rows(prob.m, prob.p_r)
+        self._rows_real = int(rb[i + 1] - rb[i])
         self.set_x(x0)
 
     def _shard(self, x_pad: np.ndarray) -> torch.Tensor:
@@ -548,6 +568,18 @@ class HybridDriver:
             dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.mesh.cols)
         return gather_x(buf.cpu().numpy(), self.cp, n_loc, self.prob.n)
 
+    def write(self, fn) -> None:
+        """Write a file every rank may read next: rank 0 alone runs
+        ``fn``, every rank waits for it and fails with it (``on_rank0``)."""
+        on_rank0(fn, self.device)
+
+    def agreed_max(self, value: float) -> float:
+        """The largest of the ranks' ``value``s, on every rank (one
+        all-reduce): how ranks reach one verdict on a host reading."""
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
     def set_x(self, x: np.ndarray) -> None:
         """Replace the weights (checkpoint restore). Padded layout slots
         never receive updates (no row references them), so a
@@ -556,14 +588,26 @@ class HybridDriver:
         self._x_loc = self._shard(scatter_x(x, self.cp, self.prob.n_loc))
 
     def loss(self) -> float:
-        """Full global objective (under ``loss_problem``'s objective) at
-        the current iterate; every rank computes the same value.
-        Collective (it gathers)."""
-        if self.loss_problem is None:
-            raise ValueError("HybridDriver was built without loss_problem")
-        x = torch.from_numpy(self.gather()).to(self.loss_problem.ya.values.device)
-        return float(problem_loss(self.loss_problem, x))
-
+        """Full global objective f(x) = (1/m)Σℓ(margin) + (λ/2)‖x‖² at the
+        current iterate, from the blocks: the rank's partial margins
+        Y_ij·x_j, summed over the "cols" group, give its row team's
+        margins; the ranks of column shard 0 contribute their team's loss
+        sum, those of row team 0 their shard's ‖x_j‖², and one all-reduce
+        over the default group adds both. Every rank gets the same value.
+        Collective."""
+        prob, mesh = self.prob, self.mesh
+        margin = ell_matvec(EllBlock(indices=self._idx, values=self._val, n=prob.n_loc), self._x_loc)
+        if mesh.cols is not None:
+            dist.all_reduce(margin, op=dist.ReduceOp.SUM, group=mesh.cols)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        loss_sum = prob.objective.pointwise_loss(margin[: self._rows_real]).sum() if mesh.col == 0 else zero
+        sq_norm = torch.sum(self._x_loc * self._x_loc) if mesh.row == 0 else zero
+        terms = torch.stack([loss_sum, sq_norm])
+        dist.all_reduce(terms, op=dist.ReduceOp.SUM)
+        f = terms[0] / prob.m
+        if prob.objective.l2:
+            f = f + 0.5 * prob.objective.l2 * terms[1]
+        return float(f)
 
 
 def run_hybrid_distributed(
@@ -573,19 +617,16 @@ def run_hybrid_distributed(
     x0: np.ndarray,
     sched: ParallelSGDSchedule,
     *,
-    loss_problem: Problem | None = None,
     device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Driver: place this rank's block once, run ``sched.rounds`` rounds,
     gather x — a thin loop over ``HybridDriver``, one ``advance`` per
     loss-sampling chunk. Returns ``(x, losses)``, the contract of the
     simulated engine's ``run_parallel_sgd``: the full global objective is
-    sampled every ``sched.loss_every`` rounds (empty trace when 0), which
-    needs ``loss_problem`` (the front door wires it). Collective: every
-    rank of the mesh calls it."""
-    if sched.loss_every and loss_problem is None:
-        raise ValueError("loss_every > 0 needs loss_problem (the global Problem)")
-    driver = HybridDriver(mesh, prob, cp, x0, sched, loss_problem=loss_problem, device=device)
+    sampled every ``sched.loss_every`` rounds (empty trace when 0), from
+    the blocks (``HybridDriver.loss``). Collective: every rank of the mesh
+    calls it."""
+    driver = HybridDriver(mesh, prob, cp, x0, sched, device=device)
     losses = []
     chunk = sched.loss_every if sched.loss_every else sched.rounds
     while driver.rounds_done < sched.rounds:

@@ -326,7 +326,7 @@ def inner_corrections(
 def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
                         sched: ParallelSGDSchedule, eta,
                         objective: Objective = LOGISTIC,
-                        comm: Collectives = COUNTING, gram: str | None = None):
+                        comm: Collectives = COUNTING):
     """The delay-D software pipeline over one round's τ/s bundles, for
     ``sched.delay ≥ 1`` (DaSGD, arXiv:2006.00441).
 
@@ -355,17 +355,15 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
     ``comm`` is the collectives the two backends issue through: the
     simulated engine passes nothing (``COUNTING``), the 2D mesh its bound
     mesh collectives (the issue then starts an asynchronous Allreduce
-    over the "cols" group and the await waits on it). ``gram`` overrides
-    ``sched.gram`` (None keeps it)."""
+    over the "cols" group and the await waits on it)."""
     s, b = sched.s, sched.b
-    gram = sched.gram if gram is None else gram
     lam = objective.l2
     scale = eta_over_b(eta, b)
     rho_s = float(_integer_pow(_decay(eta, lam), s)) if lam != 0.0 else None
 
     def compute_issue(x, t):
         idx, val = slice_bundle(t)
-        g, v = bundle_gram_v(idx, val, x, n, gram=gram, bk=sched.bk,
+        g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
                              bm=sched.bm, precision=sched.precision)
         issued = comm.issue_allreduce_cols(
             wire_gv((g, v), sched.precision), calls_per_round=bundles

@@ -49,8 +49,8 @@ TOL = 1e-5
 EXAMPLES = ROOT / "examples" / "specs"
 
 
-def _spec(name, p_r, p_c, rounds=3, loss_every=1, delay=0, precision="fp32", **kw):
-    sched = TS.hybrid(p_r, 2, 4, 0.05, 8, rounds=rounds, loss_every=loss_every, delay=delay,
+def _spec(name, p_r, p_c, rounds=3, loss_every=1, delay=0, precision="fp32", eta=0.05, **kw):
+    sched = TS.hybrid(p_r, 2, 4, eta, 8, rounds=rounds, loss_every=loss_every, delay=delay,
                       precision=precision)
     return T.ExperimentSpec(dataset="rcv1-sm", schedule=sched, name=name,
                             mesh=T.MeshSpec(p_r=p_r, p_c=p_c, backend="shard_map"), **kw)
@@ -60,12 +60,14 @@ def _spec(name, p_r, p_c, rounds=3, loss_every=1, delay=0, precision="fp32", **k
 SPECS = {
     "front2x4": _spec("front2x4", 2, 4),
     "front4x2": _spec("front4x2", 4, 2),
-    "delay1": _spec("delay1", 2, 4, delay=1),
-    "delay2": _spec("delay2", 2, 4, delay=2),
+    # η = 1: the delay and the bf16 rounding move x far enough that their
+    # controls (the D = 0 and the fp32 run) land well outside the limits
+    "delay1": _spec("delay1", 2, 4, delay=1, eta=1.0),
+    "delay2": _spec("delay2", 2, 4, delay=2, eta=1.0),
     "sess2x4": _spec("sess2x4", 2, 4, rounds=4, loss_every=2),
     "sqhinge": _spec("sqhinge", 2, 2, objective="squared_hinge", l2=1e-3),
     "lsq": _spec("lsq", 2, 2, objective="least_squares"),
-    "bf16": _spec("bf16", 2, 2, precision="bf16"),
+    "bf16": _spec("bf16", 2, 2, precision="bf16", eta=1.0),
     "base2x2": _spec("base2x2", 2, 2),
     "mesh1x1": T.ExperimentSpec(dataset="rcv1-sm", name="mesh1x1",
                                 schedule=TS.hybrid(1, 2, 8, 0.05, 8, rounds=4, loss_every=2),
@@ -137,7 +139,6 @@ from repro_torch.api import ExperimentSpec, MeshSpec, Session, StopPolicy, run, 
 from repro_torch.core import ParallelSGDSchedule
 from repro_torch.core.distributed import (
     HybridDriver, build_2d_problem, make_process_mesh, run_hybrid_distributed)
-from repro_torch.core.problem import make_problem
 from repro_torch.sparse.synthetic import make_skewed_csr
 
 arrays, info = {}, {}
@@ -158,10 +159,8 @@ def direct(key):
     a, y = skewed()
     sched = ParallelSGDSchedule.hybrid(p_r, s, b, 0.05, 8, rounds=3, loss_every=1)
     prob, cp = build_2d_problem(a, y, p_r, p_c, part, row_multiple=s * b)
-    gp = make_problem(a, y, row_multiple=s * b, device="cpu")
     x, losses = run_hybrid_distributed(make_process_mesh(p_r, p_c), prob, cp,
-                                       np.zeros(a.n, np.float32), sched, loss_problem=gp,
-                                       device="cpu")
+                                       np.zeros(a.n, np.float32), sched, device="cpu")
     arrays[key + ".x"], arrays[key + ".losses"] = x, losses
 
 
@@ -335,12 +334,27 @@ for max_points in (1, None, None):
     dist.barrier()
 info["sweep"] = calls
 info["sweep_files"] = sorted(p.name for p in (out / "sweep").iterdir())
+
+# a failed write on rank 0 (an injected I/O error between the autosave's
+# temp write and its rename, which only the writing rank reaches) fails
+# the point on every rank; all retry it together from the last autosave
+from repro_torch.api import FaultPolicy
+from repro_torch.core.faults import FaultEvent, FaultPlan, install
+point = dataclasses.replace(spec("base2x2"), name="commit-fault",
+                            faults=FaultPolicy(autosave_every=1, max_retries=1))
+clean = sweep([point], resume_dir=out / "clean", device="cpu")
+with install(FaultPlan(events=[FaultEvent(kind="io_error", site="commit", at=2)])) as inj:
+    faulted = sweep([point], resume_dir=out / "faulted", device="cpu")
+for name, res in (("clean", clean), ("faulted", faulted)):
+    arrays[name + ".x"], arrays[name + ".losses"] = res.reports[0].x, res.reports[0].losses
+info["commit_fault"] = [clean.attempts, faulted.attempts, len(faulted.quarantined),
+                        [list(f) for f in inj.fired]]
 """)
 
 
-def _sim(key: str):
+def _sim(key: str | None = None, spec=None):
     """The port's simulated engine on the same spec (this process)."""
-    spec = SPECS[key]
+    spec = SPECS[key] if spec is None else spec
     mesh = dataclasses.replace(spec.mesh, backend="simulated")
     return T.run(dataclasses.replace(spec, mesh=mesh), device="cpu")
 
@@ -486,7 +500,11 @@ def test_delayed_pipeline_backend_parity(delay, mesh2x4, ref):
     _close(got[key + ".losses"], sim.losses, f"{key} losses vs simulated")
     _close(got[key + ".x"], ref[key + ".x"], f"{key} x vs reference")
     _close(got[key + ".losses"], ref[key + ".losses"], f"{key} losses vs reference")
-    assert not np.array_equal(got[key + ".x"], got["front2x4.x"])  # D = 0, same spec otherwise
+    # the delay is live: the D = 0 run of the same spec lands ≥ 100× further
+    # from the port's mesh than the reference's mesh does
+    d0 = dataclasses.replace(SPECS[key], schedule=dataclasses.replace(SPECS[key].schedule, delay=0))
+    gap = np.abs(_sim(spec=d0).x - got[key + ".x"]).max()
+    assert gap > 100 * np.abs(got[key + ".x"] - ref[key + ".x"]).max() and gap > 0
     led = T.CommLedger.from_dict(info[key])
     assert led.delay == sim.ledger.delay == delay
     assert led.counted_words() == sim.ledger.counted_words()
@@ -502,6 +520,12 @@ def test_bf16_backend_parity_2x2(mesh2x2, ref):
     _close(got["bf16.losses"], sim.losses, "bf16 losses vs simulated")
     _close(got["bf16.x"], ref["bf16.x"], "bf16 x vs reference")
     _close(got["bf16.losses"], ref["bf16.losses"], "bf16 losses vs reference")
+    # the rounding is live: the fp32 run of the same spec lands ≥ 100×
+    # further from the port's mesh than the reference's mesh does
+    fp32 = dataclasses.replace(SPECS["bf16"],
+                               schedule=dataclasses.replace(SPECS["bf16"].schedule, precision="fp32"))
+    gap = np.abs(_sim(spec=fp32).x - got["bf16.x"]).max()
+    assert gap > 100 * np.abs(got["bf16.x"] - ref["bf16.x"]).max() and gap > 0
     led = T.CommLedger.from_dict(info["bf16"])
     assert led.rates == sim.ledger.rates
     gram = [r for r in led.rates if r.axis == "cols" and r.span > 1]
@@ -561,6 +585,19 @@ def test_restore_elastic_onto_the_mesh(mesh2x2):
     sim = _sim("base2x2")
     _close(got["elastic.x"], sim.x, "elastic x vs simulated uninterrupted")
     _close(got["elastic.losses"], sim.losses, "elastic losses vs simulated uninterrupted")
+
+
+def test_failed_rank0_write_retries_every_rank_bitwise(mesh2x2):
+    """A commit fault fires on rank 0 alone (the writing rank); every rank
+    fails the point, retries it from the round-1 autosave, and ends with
+    the bits of the run without the fault."""
+    for r, (got, info) in enumerate(mesh2x2):
+        clean_attempts, attempts, quarantined, fired = info["commit_fault"]
+        assert clean_attempts == [1] and attempts == [2] and quarantined == 0, (r, info["commit_fault"])
+        assert fired == ([["io_error", "commit", 2]] if r == 0 else []), (r, fired)
+        assert np.array_equal(got["faulted.x"], got["clean.x"]), r
+        assert np.array_equal(got["faulted.losses"], got["clean.losses"]), r
+    assert np.array_equal(mesh2x2[0][0]["clean.x"], mesh2x2[0][0]["base2x2.x"])
 
 
 def test_sweep_of_mesh_points_resumes(mesh2x2):
