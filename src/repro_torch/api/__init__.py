@@ -19,8 +19,10 @@ Every entry point that runs takes ``device=None`` — the CUDA device, or
 an error when there is none; ``device="cpu"`` runs the plain PyTorch
 versions. ``backend="shard_map"`` runs on the 2D process mesh: every rank
 of an initialized default process group of p_r·p_c ranks makes the same
-call. A spec with ``bk=None`` or a stream raises ``NotImplementedError``
-naming the ROADMAP.md item it waits for.
+call. A spec with a stream (``StreamSpec``) trains through
+``Session.step_stream`` on micro-batches from ``repro_torch.serve``. A
+spec with ``bk=None`` raises ``NotImplementedError`` naming the ROADMAP.md
+item it waits for.
 """
 
 from repro_torch.api.spec import (

@@ -40,9 +40,10 @@ The device is runtime state, like ``autosave_dir``: never part of the
 spec, never part of a hash. ``device=None`` means the CUDA device and
 raises when there is none. The session and checkpoint format is the
 reference package's, so a checkpoint written by either resumes in the
-other. Not in the port yet, and refused with ``NotImplementedError``:
-the panel autotuner (``bk=None``) and the streaming door
-(``step_stream``, a spec with ``stream.enabled``).
+other. ``step_stream`` is the streaming door: each round trains on one
+fresh micro-batch (``repro_torch.serve``) instead of the resident rows.
+Not in the port yet, and refused with ``NotImplementedError``: the panel
+autotuner (``bk=None``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.teams import TeamProblem, global_problem
 from repro_torch.obs import trace as obs_trace
+from repro_torch.serve.ingest import ColumnLocalizer, stream_shard_arrays, stream_team_problem
+from repro_torch.serve.stream import StreamDesyncError
 from repro_torch.train.checkpoint import (
     SessionCheckpoint,
     load_session_checkpoint,
@@ -105,18 +108,27 @@ class _EngineDriver:
         # on meta tensors from the problem actually built
         self.ledger = engine_comm_ledger(sched, tp.n, tp=tp)
 
-    def advance(self, k: int) -> None:
+    def _run(self, tp: TeamProblem, k: int) -> None:
         if self.timed:
             for _ in range(int(k)):
                 t0 = time.perf_counter()
-                self._x = run_engine_chunk(self.tp, self._x, self.rounds_done, 1, self.sched)
+                self._x = run_engine_chunk(tp, self._x, self.rounds_done, 1, self.sched)
                 self.sync()
                 self.ledger.add_round_seconds(time.perf_counter() - t0)
                 self.rounds_done += 1
         else:
-            self._x = run_engine_chunk(self.tp, self._x, self.rounds_done, k, self.sched)
+            self._x = run_engine_chunk(tp, self._x, self.rounds_done, k, self.sched)
             self.rounds_done += int(k)
         self.ledger.rounds = self.rounds_done
+
+    def advance(self, k: int) -> None:
+        self._run(self.tp, k)
+
+    def advance_stream(self, tp: TeamProblem) -> None:
+        """Run ONE round over a streamed team problem instead of the
+        resident one: with ``rows_local = τ·b`` the engine's cyclic bundle
+        slicing walks the fresh rows exactly once at any round index."""
+        self._run(tp, 1)
 
     def sync(self) -> None:
         if self._x.is_cuda:
@@ -195,12 +207,6 @@ class Session:
         # run() wrapper, so the build machinery import must be lazy.
         from repro_torch.api.run import _make_device_mesh, build_problem
 
-        if spec.stream.enabled:
-            raise NotImplementedError(
-                f"stream.source={spec.stream.source!r} needs the streaming and serving "
-                f"plane (serve/*, ROADMAP.md Queue 1 item 11), which the port does not "
-                f"have yet"
-            )
         self.device = resolve_device(device)
         self.autosave_dir = Path(autosave_dir) if autosave_dir is not None else None
         self.input_spec = spec          # pre-plan (what checkpoints key on)
@@ -265,15 +271,19 @@ class Session:
         """Wait for the carry without a host copy."""
         self._driver.sync()
 
-    def _traced_advance(self, sub: int, first: bool) -> None:
-        """One sub-chunk through the tracing seam: untraced, exactly the
-        bare advance; traced, the same advance wrapped in a host-side
-        span that waits for the device before it closes, so the recorded
-        wall covers the dispatched work (an observer effect on timing
-        only — the numerics are untouched)."""
+    def _traced_advance(self, sub: int, first: bool, stream_batch=None) -> None:
+        """One sub-chunk (or, with ``stream_batch``, one streamed round)
+        through the tracing seam: untraced, exactly the bare advance;
+        traced, the same advance wrapped in a host-side span that waits
+        for the device before it closes, so the recorded wall covers the
+        dispatched work (an observer effect on timing only — the numerics
+        are untouched)."""
         rec = obs_trace.active()
         if rec is None:
-            self._advance(sub)
+            if stream_batch is not None:
+                self._advance_stream(stream_batch)
+            else:
+                self._advance(sub)
             return
         with rec.span(
             "compile" if first else "round",
@@ -281,7 +291,10 @@ class Session:
             start_round=self.rounds_done,
             rounds=sub,
         ):
-            self._advance(sub)
+            if stream_batch is not None:
+                self._advance_stream(stream_batch)
+            else:
+                self._advance(sub)
             self._sync()
 
     def _measure_phases(self) -> None:
@@ -336,6 +349,74 @@ class Session:
         evaluated at every boundary, so a step spanning several may end
         early (``RoundEvent.stop`` says why).
         """
+        return self._step(k, "step_rounds")
+
+    # ---- the streaming door ----
+
+    def _next_stream_batch(self, source):
+        """One micro-batch from ``source`` — a ``StreamFeed`` (bounded
+        ingest queue; preferred) or a bare ``StreamSource`` (iterated
+        lazily from the current round, re-anchored if swapped)."""
+        if hasattr(source, "get"):  # StreamFeed
+            return source.get()
+        if getattr(self, "_stream_src", None) is not source:
+            self._stream_src = source
+            self._stream_iter = source.micro_batches(self.rounds_done)
+        return next(self._stream_iter)
+
+    def _advance_stream(self, batch) -> None:
+        """Run ONE round over a fresh micro-batch (no loss sampling).
+
+        The batch replaces the resident data for exactly this round: with
+        ``m_local = τ·b`` rows per team, the cyclic bundle slicing walks
+        the fresh rows exactly once at any round index, so streaming
+        reuses the offline round body verbatim. The executor gets the
+        batch in its layout — the mesh the column-local shards (this rank
+        moves its own block to its device), the simulated engine a team
+        problem on the session's device — and commits the round."""
+        want = self.spec.stream_rows_per_round()
+        if batch.rows != want:
+            raise ValueError(
+                f"micro-batch has {batch.rows} rows; one round of this schedule "
+                f"consumes p_r·τ·b = {want}"
+            )
+        if isinstance(self._driver, HybridDriver):
+            if getattr(self, "_localizer", None) is None:
+                self._localizer = ColumnLocalizer.from_partition(self.bundle.cp)
+            idx, val = stream_shard_arrays(
+                batch, self._localizer, self.spec.schedule.p_r, batch.width
+            )
+            self._driver.advance_stream(idx, val)
+        else:
+            self._driver.advance_stream(stream_team_problem(
+                batch, self.spec.schedule.p_r, self.bundle.dataset.A.n,
+                self.bundle.team.objective, device=self.device,
+            ))
+        self.rounds_done += 1
+
+    def step_stream(self, source, k: int | None = None) -> RoundEvent:
+        """Advance up to ``k`` rounds (default: to the next loss-sampling
+        boundary, or all remaining budget), each round consuming one
+        fresh micro-batch from ``source``, and return what happened.
+
+        The streaming twin of ``step_rounds`` — same loss-sampling
+        boundaries (the full objective is probed on the spec's resident
+        dataset, which serves as the stream session's holdout — so
+        ``stop.target_loss`` keeps working), same autosave cadence, same
+        StopPolicy and fault seam. What changes is the data: round r
+        trains on micro-batch r instead of the resident rows.
+
+        Exactly-once is structural: ``MicroBatch.index`` must equal the
+        session's round counter (``StreamDesyncError`` otherwise), and a
+        session restored from a round-r autosave re-attaches at batch r
+        — sources replay deterministically, so resume continues the
+        identical sequence with no duplicated or dropped batch.
+        """
+        return self._step(k, "step_stream", source)
+
+    def _step(self, k: int | None, what: str, source=None) -> RoundEvent:
+        """``step_rounds`` (``source`` None: chunks over the resident rows)
+        and ``step_stream`` (one round a micro-batch of ``source``)."""
         if self.done:
             raise RuntimeError(
                 f"session is finished ({self.stop_reason or 'rounds'} at round "
@@ -354,7 +435,7 @@ class Session:
             )
         k = min(int(k), remaining)
         if k < 1:
-            raise ValueError(f"step_rounds needs k ≥ 1, got {k}")
+            raise ValueError(f"{what} needs k ≥ 1, got {k}")
 
         loss = None
         synced = False
@@ -362,23 +443,39 @@ class Session:
         autosaving = self.autosave_dir is not None and autosave_every > 0
         t0 = time.perf_counter()
         while k > 0 and self.stop_reason is None:
-            if sched.loss_every:
-                sub = min(k, sched.loss_every - self.rounds_done % sched.loss_every)
-            else:
-                sub = k
-            if autosaving:
-                # split at autosave boundaries too, so a cadence finer
-                # than loss_every still checkpoints on time (chunk size
-                # never changes the iterates).
-                sub = min(sub, autosave_every - self.rounds_done % autosave_every)
-            if faults.active() is not None:
-                # under an installed fault plan every round is a
-                # boundary, so planned events fire exactly at their
-                # round index.
+            batch = None
+            if source is not None:
                 sub = 1
+                # the span measures consumer-side stall: how long the
+                # trainer waited on the feed for this round's batch.
+                with obs_trace.span("ingest", name=f"batch[{self.rounds_done}]",
+                                    index=self.rounds_done):
+                    batch = self._next_stream_batch(source)
+                if batch.index != self.rounds_done:
+                    raise StreamDesyncError(
+                        f"micro-batch index {batch.index} != session round "
+                        f"{self.rounds_done}: a batch was duplicated, dropped, or "
+                        f"reordered (resume must re-attach the source at "
+                        f"start={self.rounds_done})"
+                    )
+            else:
+                if sched.loss_every:
+                    sub = min(k, sched.loss_every - self.rounds_done % sched.loss_every)
+                else:
+                    sub = k
+                if autosaving:
+                    # split at autosave boundaries too, so a cadence finer
+                    # than loss_every still checkpoints on time (chunk size
+                    # never changes the iterates).
+                    sub = min(sub, autosave_every - self.rounds_done % autosave_every)
+                if faults.active() is not None:
+                    # under an installed fault plan every round is a
+                    # boundary, so planned events fire exactly at their
+                    # round index.
+                    sub = 1
             first = self._first_chunk_pending
             tc = time.perf_counter()
-            self._traced_advance(sub, first)
+            self._traced_advance(sub, first, stream_batch=batch)
             sampled = None
             if sched.loss_every and self.rounds_done % sched.loss_every == 0:
                 sampled = self._sample_loss()  # waits (device → float)
@@ -399,8 +496,10 @@ class Session:
                 sampled, wall=self._agreed_wall(self.wall_time_s + (time.perf_counter() - t0))
             )
             if autosaving and self.rounds_done % autosave_every == 0:
-                # preemption-safe: the carry is durable at this boundary
-                # *before* the seam below may kill/stall/fail the worker.
+                # preemption-safe: the carry (and the stream position,
+                # rounds_done: resume re-attaches at this batch index) is
+                # durable at this boundary *before* the seam below may
+                # kill/stall/fail the worker.
                 self.save(self.autosave_path)
             faults.poke("round", at=self.rounds_done)
         if not synced:
@@ -420,14 +519,6 @@ class Session:
             comm_words=modeled_comm_words(self.spec, rounds=self.rounds_done),
             ledger=self.ledger.snapshot(),
             stop=self.stop_reason,
-        )
-
-    def step_stream(self, source, k: int | None = None) -> RoundEvent:
-        """The streaming twin of ``step_rounds`` (one fresh micro-batch a
-        round) — not in the port yet."""
-        raise NotImplementedError(
-            "Session.step_stream needs the streaming and serving plane (serve/*, "
-            "ROADMAP.md Queue 1 item 11), which the port does not have yet"
         )
 
     def _agreed_wall(self, wall: float) -> float:

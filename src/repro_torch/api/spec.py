@@ -142,9 +142,8 @@ class StreamSpec:
                     invisible on the wire so default hashes are
                     unchanged); "drift" = synthetic labeled stream with
                     one concept shift; "replay" = cycle the spec's
-                    dataset rows through the online path. The port
-                    parses and hashes a stream spec; running one needs
-                    the serving plane (``Session`` refuses it).
+                    dataset rows through the online path
+                    (``repro_torch.serve.make_stream_source``).
     rows_per_round  micro-batch size. 0 (default) derives it from the
                     schedule (p_r·τ·b); a nonzero value must equal that
                     product — one batch is one round by construction.

@@ -290,11 +290,18 @@ def test_unported_branches_raise_naming_their_roadmap_item(tmp_path):
         T.plan(auto)
     with pytest.raises(NotImplementedError, match="item 9"):
         T.Session(auto, device="cpu")
-    _, stream = _pair(**CONSTRUCTED["stream"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.Session(stream, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.Session(t, device="cpu").step_stream(source=None)
+    # the streaming door (item 11) is ported: a stream spec builds and
+    # steps its declared source, an offline session has no stream to step
+    j_stream, stream = _pair(**CONSTRUCTED["stream"])
+    from repro.serve import make_stream_source as j_make_stream_source
+    from repro_torch.serve import make_stream_source
+
+    ev = T.Session(stream, device="cpu").step_stream(make_stream_source(stream), 1)
+    want = J.Session(j_stream).step_stream(j_make_stream_source(j_stream), 1)
+    assert ev.rounds_done == want.rounds_done == 1
+    np.testing.assert_allclose(ev.x, want.x, **X_TOL)
+    with pytest.raises(ValueError, match="no stream"):
+        make_stream_source(t)
     # the pytree half of the checkpoint module is not in the port at all
     from repro_torch.train import checkpoint
 

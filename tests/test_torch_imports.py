@@ -31,6 +31,9 @@ SLICE_MODULES = [
     "repro_torch.api.plan", "repro_torch.api.report", "repro_torch.api.run",
     "repro_torch.api.session", "repro_torch.api.sweep", "repro_torch.core.distributed",
     "repro_torch.obs.export", "repro_torch.launch", "repro_torch.launch.trace",
+    "repro_torch.serve", "repro_torch.serve.stream", "repro_torch.serve.ingest",
+    "repro_torch.serve.store", "repro_torch.serve.server", "repro_torch.serve.controller",
+    "repro_torch.launch.serve", "repro_torch.launch.sweep",
 ]
 
 _IMPORT_ALL = """
@@ -103,6 +106,10 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
     from repro_torch.core.engine import ParallelSGDSchedule
     from repro_torch.core.problem import make_problem, problem_from_numpy
     from repro_torch.core.teams import stack_row_teams, team_problem_from_numpy
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import sweep as sweep_cli
+    from repro_torch.serve import DriftStream, ModelStore
+    from repro_torch.serve.ingest import stream_team_problem
     from repro_torch.sparse.ell import ell_from_csr
     from repro_torch.sparse.synthetic import make_skewed_csr
 
@@ -124,6 +131,10 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
         lambda: stack_row_teams(a, y, 2),
         lambda: team_problem_from_numpy(idx, val, valid, p=1, m=8, n=4),
         lambda: problem_from_numpy(idx[0], val[0], valid[0], m=8, n=4),
+        lambda: ModelStore(),
+        lambda: stream_team_problem(DriftStream(n=20, rows=8).batch(0), 2, 20, None),
+        lambda: serve_cli.main(["--spec", str(ROOT / "examples/specs/serve_drift.json"), "--rounds", "1"]),
+        lambda: sweep_cli.main(["--spec", str(ROOT / "examples/specs/rcv1_hybrid.json")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
