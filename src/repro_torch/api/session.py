@@ -71,7 +71,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.teams import TeamProblem, global_problem
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve.ingest import ColumnLocalizer, stream_shard_arrays, stream_team_problem
+from repro_torch.serve.ingest import stream_team_problem
 from repro_torch.serve.stream import StreamDesyncError
 from repro_torch.train.checkpoint import (
     SessionCheckpoint,
@@ -124,11 +124,13 @@ class _EngineDriver:
     def advance(self, k: int) -> None:
         self._run(self.tp, k)
 
-    def advance_stream(self, tp: TeamProblem) -> None:
-        """Run ONE round over a streamed team problem instead of the
-        resident one: with ``rows_local = τ·b`` the engine's cyclic bundle
-        slicing walks the fresh rows exactly once at any round index."""
-        self._run(tp, 1)
+    def advance_batch(self, batch) -> None:
+        """Run ONE round over a micro-batch instead of the resident rows,
+        as a team problem on the carry's device: with ``rows_local = τ·b``
+        the engine's cyclic bundle slicing walks the fresh rows exactly
+        once at any round index."""
+        tp = self.tp
+        self._run(stream_team_problem(batch, tp.p, tp.n, tp.objective, device=tp.values.device), 1)
 
     def sync(self) -> None:
         if self._x.is_cuda:
@@ -370,28 +372,15 @@ class Session:
         The batch replaces the resident data for exactly this round: with
         ``m_local = τ·b`` rows per team, the cyclic bundle slicing walks
         the fresh rows exactly once at any round index, so streaming
-        reuses the offline round body verbatim. The executor gets the
-        batch in its layout — the mesh the column-local shards (this rank
-        moves its own block to its device), the simulated engine a team
-        problem on the session's device — and commits the round."""
+        reuses the offline round body verbatim. The executor puts the
+        batch in its own layout and commits the round."""
         want = self.spec.stream_rows_per_round()
         if batch.rows != want:
             raise ValueError(
                 f"micro-batch has {batch.rows} rows; one round of this schedule "
                 f"consumes p_r·τ·b = {want}"
             )
-        if isinstance(self._driver, HybridDriver):
-            if getattr(self, "_localizer", None) is None:
-                self._localizer = ColumnLocalizer.from_partition(self.bundle.cp)
-            idx, val = stream_shard_arrays(
-                batch, self._localizer, self.spec.schedule.p_r, batch.width
-            )
-            self._driver.advance_stream(idx, val)
-        else:
-            self._driver.advance_stream(stream_team_problem(
-                batch, self.spec.schedule.p_r, self.bundle.dataset.A.n,
-                self.bundle.team.objective, device=self.device,
-            ))
+        self._driver.advance_batch(batch)
         self.rounds_done += 1
 
     def step_stream(self, source, k: int | None = None) -> RoundEvent:

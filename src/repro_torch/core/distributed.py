@@ -466,6 +466,7 @@ class HybridDriver:
         self.mesh = mesh
         self.prob = prob
         self.cp = cp
+        self._localizer = None  # built at the first streamed batch
         self.sched = sched
         self.rounds_done = int(rounds_done)
         self.comm = comm.bind(mesh)
@@ -512,6 +513,16 @@ class HybridDriver:
         idx = torch.as_tensor(np.ascontiguousarray(indices[i, j]), dtype=torch.int32).to(self.device)
         val = torch.as_tensor(np.ascontiguousarray(values[i, j]), dtype=torch.float32).to(self.device)
         self._run_round(idx, val)
+
+    def advance_batch(self, batch) -> None:
+        """Run ONE round over a micro-batch (global column ids): the
+        batch becomes column-local shards of this driver's partition
+        (``repro_torch.serve.ingest``), then ``advance_stream``."""
+        from repro_torch.serve.ingest import ColumnLocalizer, stream_shard_arrays  # the serve package imports this module
+
+        if self._localizer is None:
+            self._localizer = ColumnLocalizer.from_partition(self.cp)
+        self.advance_stream(*stream_shard_arrays(batch, self._localizer, self.prob.p_r, batch.width))
 
     def sync(self) -> None:
         """Wait until all dispatched rounds complete — no host copy."""

@@ -119,6 +119,8 @@ class PredictionService:
         values = np.atleast_2d(np.asarray(values, np.float32))
         if indices.shape != values.shape:
             raise ValueError(f"indices {indices.shape} != values {values.shape}")
+        # a bad request fails alone, not the coalesced batch it would join
+        self.store.check_ids(indices)
         pending = _Pending(indices=indices, values=values, done=threading.Event())
         self._q.put(pending)
         if not pending.done.wait(timeout):
@@ -272,7 +274,7 @@ def serve_http(
                         "model_version": res.model_version,
                     },
                 )
-            except (ValueError, KeyError, json.JSONDecodeError) as e:
+            except (ValueError, KeyError, TypeError, OverflowError, json.JSONDecodeError) as e:
                 self._send(400, {"error": str(e)})
             except RuntimeError as e:  # e.g. empty store
                 self._send(503, {"error": str(e)})

@@ -44,6 +44,15 @@ from repro_torch.train.checkpoint import load_model_weights
 __all__ = ["ModelSnapshot", "ModelStore"]
 
 
+def _check_ids(indices: np.ndarray, n: int) -> None:
+    """Raise ``ValueError`` unless every id lies in [-n, n) — the ids a
+    numpy gather over n weights accepts (negatives count from the end)."""
+    if indices.size and (indices.max() >= n or indices.min() < -n):
+        raise ValueError(
+            f"feature ids must lie in [-{n}, {n}); got [{indices.min()}, {indices.max()}]"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelSnapshot:
     """One immutable served model.
@@ -77,10 +86,14 @@ class ModelSnapshot:
     def predict(self, indices, values) -> np.ndarray:
         """Batched margins for (B, width) ELL rows: Σ_w x[idx]·val, a
         gather and a row sum on the store's device, returned as float32 on
-        the host. Padded slots (value 0) contribute nothing; ids must be
-        < n."""
+        the host. Padded slots (value 0) contribute nothing; an id outside
+        [-n, n) raises ``ValueError`` before anything reaches the device
+        (on a card an out-of-range gather would be a device-side assert,
+        which fails every later CUDA call of the process)."""
+        indices = np.asarray(indices, np.int64)
+        _check_ids(indices, self.n)
         dev = self.weights.device
-        idx = torch.as_tensor(np.asarray(indices, np.int64)).to(dev)
+        idx = torch.as_tensor(indices).to(dev)
         val = torch.as_tensor(np.asarray(values, np.float32)).to(dev)
         return (self.weights[idx] * val).sum(dim=-1).cpu().numpy()
 
@@ -118,6 +131,13 @@ class ModelStore:
     def version(self) -> int:
         snap = self._snapshot
         return snap.version if snap is not None else 0
+
+    def check_ids(self, indices) -> None:
+        """Raise ``ValueError`` for ids the current model cannot gather
+        (nothing to check on an empty store: ``predict`` raises there)."""
+        snap = self._snapshot
+        if snap is not None:
+            _check_ids(np.asarray(indices, np.int64), snap.n)
 
     def predict(self, indices, values) -> tuple[np.ndarray, int]:
         """Margins + the version that served them (one snapshot pin for

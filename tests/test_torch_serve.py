@@ -346,6 +346,53 @@ def test_http_front():
             server.shutdown()
 
 
+# ids the model cannot gather are refused on the host: on a card an
+# out-of-range gather would be a device-side assert that fails every later
+# CUDA call of the process (training included), so it must never launch
+@pytest.mark.parametrize("bad_id", [3, 7, -4, 2**31 - 1])
+def test_out_of_range_ids_are_refused_on_the_host(bad_id):
+    x = np.array([1.0, -1.0, 0.5], np.float32)
+    store = store_()
+    store.publish(x)
+    with pytest.raises(ValueError, match="feature ids"):
+        store.predict([[0, bad_id]], [[1.0, 1.0]])
+    # [-n, n) is what a numpy gather accepts: negatives count from the end
+    m, _ = store.predict([[-3, -1]], [[1.0, 2.0]])
+    np.testing.assert_array_equal(m, np.einsum("bw,bw->b", x[[[-3, -1]]], [[1.0, 2.0]]))
+    with PredictionService(store, max_wait_s=0.05) as svc:
+        # a bad request fails alone: a good one coalesced beside it is answered
+        good = []
+        t = threading.Thread(target=lambda: good.append(svc.predict([[0, 2]], [[1.0, 2.0]])))
+        t.start()
+        with pytest.raises(ValueError, match="feature ids"):
+            svc.predict([[bad_id]], [[1.0]])
+        t.join()
+        np.testing.assert_allclose(good[0].margins, [2.0])
+        assert svc.stats()["errors"] == 0
+        server, _ = serve_http(svc, port=0)
+        host, port = server.server_address[:2]
+        try:
+            def post(rows):
+                req = urllib.request.Request(
+                    f"http://{host}:{port}/predict",
+                    data=json.dumps({"rows": rows}).encode(),
+                    headers={"Content-Type": "application/json"},
+                )
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    return json.loads(r.read())
+
+            with pytest.raises(urllib.error.HTTPError) as e:
+                post([{"idx": [0, bad_id], "val": [1.0, 1.0]}])
+            assert e.value.code == 400
+            assert "feature ids" in json.loads(e.value.read())["error"]
+            # the service goes on answering
+            out = post([{"idx": [0, 2], "val": [1.0, 2.0]}])
+            np.testing.assert_allclose(out["margins"], [2.0])
+            assert out["model_version"] == 1
+        finally:
+            server.shutdown()
+
+
 # ---------------- Session.step_stream ----------------
 
 
