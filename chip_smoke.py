@@ -19,17 +19,29 @@ then the streaming and serving plane (a replay stream through
 versions, restored from an autosave; a drifting stream behind
 ``OnlineController``, ``PredictionService`` and its HTTP front, with client
 requests beside training; one ``{"serve": ...}`` JSON line),
+before those the Gram autotuner (``tune_panel`` on the card for rcv1's
+profile in fp32 and bf16 and at rows 512, by device time, each candidate
+(tile, ks) beside the default geometry; a second call that must hit the
+cache; a ``bk=None`` Session on full rcv1 against the ``bk=512`` run; the
+dense oracle against the kernel above the reference's heavy-tail width,
+which must agree with the card's rule; one ``{"tune": ...}`` JSON line),
 then the 2D-mesh backend (``backend="shard_map"``) through ``run(spec)`` and
 ``Session``: a 1 × 1 mesh on a world-size-1 NCCL group in this process
 (fp32, and bf16 at D = 1, which the fp32 run must miss), and
 a 2 × 2 mesh of four spawned processes sharing the card in a gloo group
 with CUDA tensors (fp32 at D = 0, bf16 at D = 1), each held against the
 simulated engine, with each rank's launch counts and comm ledger checked
-against the closed form; and prints
+against the closed form — and, right after the build and before every
+solver phase (on an empty card), the language-model trainer
+(``repro_torch.train.loop.train``) on qwen2.5-3b at its published width,
+depth cut to 2 layers: the loss at weights carried to the card against
+the CPU's at the same weights, 20 adamw steps of 8 × 512 tokens in fp32
+whose loss must fall, tokens/s and peak device memory (one ``{"lm": ...}``
+JSON line); and prints
 
   * the GPU's name and power limit,
-  * one JSON line each ``{"front_door": ...}``, ``{"serve": ...}`` and
-    ``{"mesh": ...}``,
+  * one JSON line each ``{"tune": ...}``, ``{"front_door": ...}``,
+    ``{"serve": ...}``, ``{"mesh": ...}`` and ``{"lm": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
     bound and library yardstick,
@@ -55,6 +67,7 @@ CPU mode: without a CUDA device the script fails at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -129,6 +142,11 @@ SERVE_BF16_DX = 5e-5
 # phase at full size probed 0.686 before the flip, 0.313 at the first probe
 # after it and 0.588 at the last (PERF.md)
 DRIFT_ACC_FALL, DRIFT_ACC_RECOVER = 0.4, 0.5
+# the lm phase: qwen2.5-3b at its published width, depth cut to 2 layers,
+# 20 adamw steps of 8 × 512 tokens in fp32; the card's loss at the carried
+# weights within 1e-4 relative of the CPU's (float32 sums in another order)
+LM_LAYERS, LM_STEPS, LM_BATCH, LM_SEQ = 2, 20, 8, 512
+LM_FIRST_LOSS_RTOL = 1e-4
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
@@ -225,17 +243,6 @@ def errors(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, fl
     max_abs = float(diff.max())
     max_rel = float((diff / want.abs().clamp_min(1e-30)).where(want != 0, torch.zeros_like(diff)).max())
     return max_abs, max_rel, bool(torch.all(diff <= tol + tol * want.abs()))
-
-
-def matching_pairs(idx: torch.Tensor, val: torch.Tensor, n: int) -> float:
-    """Σ_{i>j} of the nonzero entries of rows i and j that share a column id:
-    the products G needs on this bundle, whatever the kernel's design."""
-    nz = val != 0
-    rows = torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(idx)[nz]
-    cols = idx[nz].long()
-    per_col = torch.unique(cols, return_counts=True)[1].double()
-    per_cell = torch.unique(rows * n + cols, return_counts=True)[1].double()
-    return float(((per_col ** 2).sum() - (per_cell ** 2).sum()) / 2)
 
 
 def gram_probes(val: torch.Tensor) -> float:
@@ -1076,6 +1083,244 @@ def serve_phase(err: dict, smi: str, device=None) -> dict:
     return out
 
 
+def tune_phase(tp, smi: str, device=None) -> dict:
+    """The Gram autotuner on the card (``repro_torch.kernels.tune``):
+    ``tune_panel`` for rcv1's profile (rows 128, width 74, n_local 47,236)
+    in fp32 and bf16 and at rows 512, each candidate (tile, ks) by device
+    time beside the default geometry's; a second call that must hit the
+    cache (the same bytes, nothing measured); a ``bk=None`` Session on
+    full rcv1 (exactly the main path's launches, final x within X_TOL of
+    the ``bk=512`` run); and the heavy-tail rule's two paths — the dense
+    oracle against the kernel in both modes at sb = 16 on rcv1's rows and
+    at (128, 540) — which must agree with ``select_gram_path``'s verdict
+    on the card. ``tp`` is the main path's team problem. Returns the
+    numbers for the phase's JSON line."""
+    import tempfile
+
+    from repro_torch.api import ExperimentSpec, MeshSpec, Session
+    from repro_torch.core.engine import ParallelSGDSchedule
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.ell_gram import (
+        default_tile_ks, ell_gram_and_v, ell_gram_and_v_blocked, supported_tile_ks,
+    )
+    from repro_torch.kernels.ref import ell_gram_and_v_ref
+
+    started = time.perf_counter()
+    cache = pathlib.Path(tempfile.mkdtemp(prefix="repro-torch-tune-"))
+    kind = tune.device_kind(device)
+    out = {"device": kind, "card": smi, "profiles": {}}
+    profiles = {
+        "rcv1_fp32": tune.PanelProfile(rows=S * B, width=74, n_local=tp.n, precision="fp32"),
+        "rcv1_bf16": tune.PanelProfile(rows=S * B, width=74, n_local=tp.n, precision="bf16"),
+        "rcv1_rows512": tune.PanelProfile(rows=512, width=74, n_local=tp.n, precision="fp32"),
+    }
+    records = {}
+    for label, profile in profiles.items():
+        t0 = time.perf_counter()
+        rec = tune.tune_panel(profile, run_on=device, cache_dir=cache)
+        tune_s = time.perf_counter() - t0
+        records[label] = rec
+        path = cache / f"{rec['key']}.json"
+        check(path.exists() and not rec.get("fallback"), f"tune_panel cached no record for {label}")
+        check(rec["device"] == kind and rec["kernel_version"] == tune.KERNEL_VERSION
+              and (rec["bk"], rec["bm"]) == (tune.FALLBACK_BK, tune.FALLBACK_BM)
+              and rec["profile"] == profile.to_dict(), f"the {label} record is not the card's: {rec}")
+        live = [c for c in rec["candidates"] if c.get("skipped") is None]
+        default = next(c for c in rec["candidates"] if c.get("default"))
+        check((default["tile"], default["ks"]) == default_tile_ks(profile.rows) and default.get("skipped") is None,
+              f"the default geometry was not timed for {label}")
+        check((rec["tile"], rec["ks"]) == min(((c["measured_s"], (c["tile"], c["ks"])) for c in live))[1],
+              f"the {label} winner is not the fastest candidate")
+        for c in rec["candidates"]:
+            log(f"[tune ] {label}: tile {c['tile']:2d} ks {c['ks']:2d}: "
+                + (f"{c['measured_s'] * 1e3:.5f} ms on the device (bound {c['attainable_s'] * 1e3:.6f} ms)"
+                   if "measured_s" in c else f"skipped ({c['skipped']})")
+                + (" ← default" if c.get("default") else "") + (" ← winner" if (c["tile"], c["ks"]) == (rec["tile"], rec["ks"]) else ""))
+        # a second call hits the cache: the same bytes, nothing measured
+        raw = path.read_bytes()
+        timed = tune._device_seconds
+
+        def no_measure(*a, **k):
+            raise AssertionError("a cache hit re-measured")
+
+        tune._device_seconds = no_measure
+        try:
+            hit = tune.tune_panel(profile, run_on=device, cache_dir=cache)
+        finally:
+            tune._device_seconds = timed
+        check(hit == rec and path.read_bytes() == raw, f"the second tune_panel call for {label} did not hit the cache")
+        out["profiles"][label] = {
+            "profile": profile.to_dict(), "key": rec["key"], "tile": rec["tile"], "ks": rec["ks"],
+            "ms": rec["measured_s"] * 1e3, "default": [default["tile"], default["ks"]],
+            "default_ms": default["measured_s"] * 1e3, "bound_ms": rec["attainable_s"] * 1e3,
+            "bound_by": default["dominant"], "efficiency": rec["efficiency"], "tune_s": tune_s,
+            "candidates": {f"{c['tile']}x{c['ks']}": (c.get("measured_s") or 0.0) * 1e3 for c in rec["candidates"]},
+        }
+        log(f"[tune ] {label}: winner tile {rec['tile']} ks {rec['ks']} {rec['measured_s'] * 1e3:.5f} ms against the "
+            f"default ({default['tile']}, {default['ks']}) {default['measured_s'] * 1e3:.5f} ms; bound "
+            f"{rec['attainable_s'] * 1e3:.6f} ms ({tune_s:.1f} s to tune); the second call hit the cache")
+
+    # every candidate geometry against the plain version on the main path's
+    # real rows (sb = 128 and 512), both modes; the winners twice, bitwise
+    geo_err = {}
+    for sb in (S * B, 512):
+        bi, bv = tp.indices[0][:sb].contiguous(), tp.values[0][:sb].contiguous()
+        x = torch.zeros(tp.n, device=bi.device).normal_()
+        for mode in ("fp32", "bf16"):
+            g_ref, v_ref = ell_gram_and_v_blocked(bi, bv, x, n=tp.n, precision=mode)
+            worst = 0.0
+            for tile, ks in supported_tile_ks():
+                g, v = ell_gram_and_v(bi, bv, x, n=tp.n, precision=mode, geometry=(tile, ks))
+                for got, want in ((g, g_ref), (v, v_ref)):
+                    max_abs, _, ok = errors(got, want, GV_TOL)
+                    worst = max(worst, max_abs)
+                    check(ok, f"ell_gram {mode} at geometry ({tile}, {ks}), sb = {sb}: max abs error {max_abs}")
+            label = "rcv1_rows512" if sb == 512 else f"rcv1_{mode}"
+            win = (records[label]["tile"], records[label]["ks"])
+            g1, v1 = ell_gram_and_v(bi, bv, x, n=tp.n, precision=mode, geometry=win)
+            g2, v2 = ell_gram_and_v(bi, bv, x, n=tp.n, precision=mode, geometry=win)
+            check(torch.equal(g1, g2) and torch.equal(v1, v2), f"two launches at the tuned {win} differ (sb = {sb}, {mode})")
+            geo_err[f"sb{sb}.{mode}"] = worst
+            # the tuned and the default geometry on team 0's real bundles (a
+            # pass over them, device time): what the timing bundle stood for
+            offsets = list(range(0, tp.rows_local - sb + 1, sb))
+            real = {}
+            for which, geo in (("default", default_tile_ks(sb)), ("tuned", win)):
+                real[which] = device_ms(lambda k: ell_gram_and_v(
+                    tp.indices[0][offsets[k % len(offsets)]:][:sb], tp.values[0][offsets[k % len(offsets)]:][:sb],
+                    x, n=tp.n, precision=mode, geometry=geo), inner=len(offsets))
+            out["profiles"][label][f"real_{mode}"] = {"default_ms": real["default"], "tuned_ms": real["tuned"],
+                                                      "bundles": len(offsets)}
+            log(f"[tune ] sb = {sb} {mode}: all {len(supported_tile_ks())} geometries within {GV_TOL:g} of the plain "
+                f"version (worst {worst:.3g}); the winner {win} twice, bitwise equal; on rcv1's real bundles "
+                f"(team 0, {len(offsets)} of them) the winner {real['tuned']:.5f} ms, the default "
+                f"{default_tile_ks(sb)} {real['default']:.5f} ms on the device")
+    out["geometry_max_abs_err"] = geo_err
+
+    # a bk=None Session on full rcv1 (p_c = 1: the tuned rcv1_fp32 profile)
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(cache)
+    try:
+        def spec_(bk):
+            return ExperimentSpec(
+                dataset=DATASET, seed=0, row_multiple=S * B, name=f"{DATASET}-tuned",
+                schedule=ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, bk=bk),
+                mesh=MeshSpec(p_r=P_R, p_c=1))
+
+        tuned = Session(spec_(None), device=device)
+        want = (records["rcv1_fp32"]["tile"], records["rcv1_fp32"]["ks"])
+        check(tuned.gram_geometry == want and tuned.spec.schedule.gram == "kernel"
+              and (tuned.spec.schedule.bk, tuned.spec.schedule.bm) == (512, None),
+              f"the bk=None Session resolved {tuned.gram_geometry}, {tuned.spec.schedule}, not the cached {want}")
+        zero_launch_counts()
+        x_tuned = tuned.run().x
+        got = launch_counts()
+        expected = ROUNDS * P_R * (TAU // S)
+        log(f"[tune ] bk=None Session (geometry {tuned.gram_geometry}): launches {got}")
+        check(got["ell_gram.fp32"] == expected and got["sstep_inner.fp32"] == expected
+              and got["ell_gram.bf16"] == got["sstep_inner.bf16"] == 0,
+              f"the bk=None Session launched {got}, expected {expected} of each fp32 kernel")
+        x_static = Session(spec_(512), device=device).run().x
+    finally:
+        del os.environ["REPRO_TORCH_TUNE_CACHE"]
+    x_max = float(np.abs(x_static).max())
+    tuned_gap = float(np.abs(x_tuned - x_static).max())
+    log(f"[tune ] bk=None vs bk=512: max |Δx| {tuned_gap:.3g} (limit {X_TOL * x_max:.3g})")
+    check(x_max > 0 and tuned_gap <= X_TOL * x_max, f"the tuned run is {tuned_gap} from the bk=512 run")
+    out.update(session_launches=got, session_gap=tuned_gap, session_x_max=x_max, session_geometry=list(want))
+
+    # the heavy-tail rule: the dense oracle against the kernel above 4·s·b
+    news_idx, news_val, news_x = random_bundle(128, 540, NEWS20_N, 500, tp.values.device, unique=True)
+    shapes = {"rcv1_sb16": (tp.indices[0][:16].contiguous(), tp.values[0][:16].contiguous(),
+                            torch.zeros(tp.n, device=tp.values.device).normal_(), tp.n),
+              "w540": (news_idx, news_val, news_x, NEWS20_N)}
+    heavy = {}
+    for label, (idx, val, x, n_cols) in shapes.items():
+        sb, w = idx.shape
+        dense_ms = device_ms(lambda k: ell_gram_and_v_ref(idx, val, x, n_cols), inner=2 if n_cols > 10**6 else 10)
+        row = {"sb": sb, "w": w, "n": n_cols, "dense_ms": dense_ms}
+        for mode in ("fp32", "bf16"):
+            kernel_ms = device_ms(lambda k: ell_gram_and_v(idx, val, x, n=n_cols, precision=mode), inner=20)
+            faster = "kernel" if kernel_ms < dense_ms else "dense"
+            rule = tune.select_gram_path(w, sb, device=kind)
+            row[mode] = {"kernel_ms": kernel_ms, "faster": faster, "rule": rule}
+            log(f"[tune ] heavy tail {label} (sb = {sb}, w = {w} > {tune.HEAVY_TAIL_FACTOR}·sb = {tune.HEAVY_TAIL_FACTOR * sb}, "
+                f"n = {n_cols}) {mode}: kernel {kernel_ms:.5f} ms, dense oracle (fp32) {dense_ms:.5f} ms on the device → "
+                f"{faster} is faster; the card's rule picks {rule}")
+            check(w > tune.HEAVY_TAIL_FACTOR * sb, f"{label} is not above the reference's heavy-tail width")
+            check(rule == faster, f"the card's heavy-tail rule picks {rule} at {label} {mode}, but {faster} is faster")
+        heavy[label] = row
+    out["heavy_tail"] = heavy
+    out["card_heavy_tail_factor"] = tune.CARD_HEAVY_TAIL_FACTOR
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[tune ] phase done in {out['phase_s']:.1f} s")
+    return out
+
+
+def lm_phase(smi: str, device=None) -> dict:
+    """The language-model trainer (``repro_torch.train.loop.train``, what
+    ``python -m repro_torch.launch.train`` runs) on qwen2.5-3b at its
+    published width, depth cut to ``LM_LAYERS``: weights drawn on the host
+    from a seed and carried to the card through the numpy tree
+    (``params_to_numpy`` → ``params_from_numpy``, as the reference's would
+    be); the loss at those weights on a 1 × 128 batch held against the CPU's
+    plain run at the same weights (``LM_FIRST_LOSS_RTOL``); then
+    ``LM_STEPS`` adamw steps of ``LM_BATCH`` × ``LM_SEQ`` tokens in fp32
+    (TF32 off), after one warm-up step, whose loss must fall. Returns the
+    numbers for the phase's JSON line."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, lm_loss, params_from_numpy, params_to_numpy
+    from repro_torch.train.data import MarkovTextStream
+    from repro_torch.train.loop import train
+
+    started = time.perf_counter()
+    published = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(published, n_layers=LM_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size, cfg.qkv_bias, cfg.rope_theta)
+          == (2048, 16, 2, 11008, 151936, True, 1e6), f"qwen2.5-3b is not at its published width: {cfg}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for fp32 matmuls")
+    t0 = time.perf_counter()
+    host = init_params(cfg, dtype=torch.float32, device="cpu", seed=0)
+    card = params_from_numpy(params_to_numpy(host), device=device)
+    n_params = sum(t.numel() for t in tree_leaves(host))
+    init_s = time.perf_counter() - t0
+    log(f"[lm   ] qwen2.5-3b at its published width (d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV bias, rope θ {cfg.rope_theta:g}), depth cut {published.n_layers} → "
+        f"{cfg.n_layers} layers: {n_params / 1e6:.1f} M parameters, drawn and carried to the card in {init_s:.1f} s")
+
+    toks, targs = next(MarkovTextStream(cfg.vocab_size, seed=0).batches(1, 128))
+    with torch.no_grad():
+        loss_cpu = float(lm_loss(cfg, host, torch.from_numpy(toks), torch.from_numpy(targs)))
+        dev = card["embed"].device
+        loss_card = float(lm_loss(cfg, card, torch.from_numpy(toks).to(dev), torch.from_numpy(targs).to(dev)))
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"[lm   ] loss at the carried weights on 1 × 128 tokens: card {loss_card:.7f}, CPU {loss_cpu:.7f}, "
+        f"relative {rel:.3g} (limit {LM_FIRST_LOSS_RTOL:g})")
+    check(math.isfinite(loss_card) and rel <= LM_FIRST_LOSS_RTOL, f"the card's first loss is {rel} from the CPU's")
+    del host
+
+    train(cfg, steps=1, batch=LM_BATCH, seq_len=LM_SEQ, params=card, device=device, log_every=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    report = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq_len=LM_SEQ, params=card, device=device, log_every=1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = report.losses
+    log(f"[lm   ] {LM_STEPS} adamw steps of {LM_BATCH} × {LM_SEQ} tokens, fp32: losses {losses[0]:.4f} → {losses[-1]:.4f}; "
+        f"{report.tokens_per_s:.0f} tokens/s; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB — {smi}")
+    check(len(losses) == LM_STEPS and all(math.isfinite(v) for v in losses), f"the LM losses are {losses}")
+    check(losses[-1] < losses[0], f"the LM loss did not fall over {LM_STEPS} steps: {losses}")
+    tokens_per_s = report.tokens_per_s
+    del card, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "card": smi, "layers": cfg.n_layers, "published_layers": published.n_layers,
+            "reduced": [f"n_layers {published.n_layers} -> {cfg.n_layers}"], "params": n_params,
+            "batch": LM_BATCH, "seq_len": LM_SEQ, "steps": LM_STEPS, "optimizer": "adamw(3e-4)", "dtype": "float32",
+            "tf32": False, "first_loss_card": loss_card, "first_loss_cpu": loss_cpu, "first_loss_rel": rel,
+            "losses": losses, "tokens_per_s": tokens_per_s, "max_memory_allocated": peak,
+            "init_s": init_s, "phase_s": time.perf_counter() - started}
+
+
 def mesh_spec(p_r: int, p_c: int, backend: str, delay: int = 0, precision: str = "fp32"):
     """The mesh phase's spec: full-size rcv1, the main path's s, b, τ, η and
     rounds on a p_r × p_c mesh, a loss sample every 4 rounds."""
@@ -1376,6 +1621,7 @@ def main() -> None:
     from repro_torch.kernels.ell_gram import MAX_CHUNK, ell_gram_and_v, ell_gram_and_v_blocked
     from repro_torch.kernels.ref import densify_bundle_ref, ell_gram_and_v_ref
     from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
+    from repro_torch.launch.roofline import probe_bound
     from repro_torch.sparse.ell import EllBlock, ell_rmatvec
     from repro_torch.sparse.synthetic import make_dataset
 
@@ -1394,6 +1640,11 @@ def main() -> None:
                 log(f"[ptxas] {name}: {line.strip()}")
         check(len(kernels_seen) == len(spills) == 2, f"ptxas reported {len(kernels_seen)} kernels of {name}, expected 2")
         check(all(s == (0, 0) for s in spills), f"a kernel of {name} spills registers: {spills}")
+
+    # ---- the language-model trainer: qwen2.5-3b at its published width ---
+    # (first, on an empty card: its ~28 GiB peak does not share the card
+    # with what the solver's phases keep)
+    lm = lm_phase(smi)
 
     t0 = time.perf_counter()
     ds = make_dataset(DATASET, seed=0)
@@ -1729,19 +1980,18 @@ def main() -> None:
     report = {}
     inner_inputs = {}  # label: (s, b, G, v) — the corrections' timed inputs
     for label, (sb, s, b, bundle, per_pass, x_in, n_cols) in shapes.items():
-        # bounds from this run's inputs (bundle 0): bytes each read or written
-        # once over the memory rate, against the operations that (G, v) needs
-        # over the peak rate for the mode's type (FP32 outside the tensor
-        # cores; bf16 dense): one multiply-add per pair of nonzeros of rows
-        # i > j that share a column id, one per nonzero for v. The kernel's
-        # own work is a table lookup per nonzero of row i and row j < i; that
+        # bounds from this run's inputs (bundle 0), the count the autotuner
+        # reads (repro_torch.launch.roofline.probe_bound): bytes each read or
+        # written once over the memory rate, against the operations that
+        # (G, v) needs over the FP32 rate (the kernel multiplies in fp32 in
+        # both modes): one multiply-add per pair of nonzeros of rows i > j
+        # that share a column id, one per nonzero for v. The kernel's own
+        # work is a table lookup per nonzero of row i and row j < i; that
         # count, at one lookup per FP32 lane and cycle, is printed beside the
         # bound (design_ops_ms), not as it.
         bi, bv = bundle(0)
         w = int(bi.shape[1])
-        nnz = (bv != 0).sum(dim=1).double()
-        gram_bytes = bi.numel() * 8 + int(torch.unique(bi).numel()) * 4 + sb * sb * 4 + sb * 4
-        gram_flop = 2.0 * matching_pairs(bi, bv, n_cols) + 2.0 * float(nnz.sum())
+        gram_bound = probe_bound(bi, bv)
         gram_design_ms = gram_probes(bv) / FP32_FLOP_PER_S * 1e3
         report[label] = {}
         for mode, flop_rate in (("fp32", FP32_FLOP_PER_S), ("bf16", BF16_FLOP_PER_S)):
@@ -1761,7 +2011,7 @@ def main() -> None:
             gram_lib_ms = eager_ms(library, inner=2)
             report[label][f"ell_gram.{mode}"] = dict(
                 ms=gram_ms, eager_ms=gram_eager_ms, plain_ms=gram_plain_ms, library_ms=gram_lib_ms,
-                bound={"bytes": gram_bytes / HBM_BYTES_PER_S * 1e3, "operations": gram_flop / flop_rate * 1e3},
+                bound={"bytes": gram_bound.memory_s * 1e3, "operations": gram_bound.compute_s * 1e3},
                 design_ops_ms=gram_design_ms)
             if s is None:
                 continue
@@ -1816,6 +2066,10 @@ def main() -> None:
         profile_main_path("synchronous fp32", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched), ROUNDS)
         profile_main_path(f"D = {DELAY} bf16", lambda: run_engine_chunk(tp, x0, 0, ROUNDS, sched16), ROUNDS)
 
+    # ---- the Gram autotuner: tune_panel, its cache, a bk=None Session ------
+    tuned = tune_phase(tp, smi)
+    print(json.dumps({"tune": tuned}), flush=True)
+
     # ---- the front door: spec → plan → Session → report → sweep ----------
     front = front_door_phase(tp, zero_counts, counts, smi)
     print(json.dumps({"front_door": front}), flush=True)
@@ -1828,6 +2082,9 @@ def main() -> None:
     # ---- the 2D mesh: 1 × 1 over NCCL, 2 × 2 of four processes on the card --
     mesh = mesh_phase(smi)
     print(json.dumps({"mesh": mesh}), flush=True)
+    log(f"[mem  ] device memory held after the solver's phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    print(json.dumps({"lm": lm}), flush=True)
 
     # ---- phase 6: the kernels line, the device lines ---------------------
     # each (kernel, mode) with its launches on the path that runs it: the
@@ -1859,6 +2116,9 @@ def main() -> None:
             **{label: {k: report[label][key][k] for k in TIMED_KEYS} for label in ("sb512", "w540", "col2", "drift16")
                if key in report[label]},
         })
+        if name == "ell_gram":  # the autotuner's (tile, ks) for rcv1's profile beside the default's
+            prof = tuned["profiles"][f"rcv1_{mode}"]
+            kernels[-1]["tuned"] = {k: prof[k] for k in ("tile", "ks", "ms", "default", "default_ms", "bound_ms")}
         if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
             kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
     print(smi, flush=True)

@@ -57,9 +57,10 @@ class Plan:
     b_star: float | None = None
     calibrated: bool = False
     recommended_delay: int = 0
-    # (bk, bm) from the kernel tuner's cache when schedule.bk=None opts
-    # into it. The port has no tuner yet: bk=None raises in plan(), so
-    # this stays None.
+    # (bk, bm) from the kernel tuner's disk cache when schedule.bk=None
+    # opted in and a cached winner exists for the run's device; None =
+    # tune (or fall back to the static 512) at build time. plan() only
+    # *reads* the cache — planning stays pure.
     tuned_panel: tuple | None = None
 
     def summary(self) -> str:
@@ -143,7 +144,22 @@ def replan_mesh(
     return best
 
 
-def plan(spec: ExperimentSpec, calibration: Calibration | None = None) -> Plan:
+def _tuner_device(device) -> str | None:
+    """The tuner cache's device kind for a plan: the given device's, or
+    with none given the CUDA device's; None (the probe misses) when there
+    is no card. Never raises, never initializes anything but the query."""
+    import torch
+
+    from repro_torch.kernels.tune import device_kind
+
+    if device is not None:
+        return device_kind(device)
+    if torch.cuda.is_available():
+        return device_kind("cuda")
+    return None
+
+
+def plan(spec: ExperimentSpec, calibration: Calibration | None = None, device=None) -> Plan:
     """Cost-model the spec (and auto-tune it when asked). Pure planning:
     nothing is built, placed, or run — safe as a CI dry-run.
 
@@ -151,13 +167,12 @@ def plan(spec: ExperimentSpec, calibration: Calibration | None = None) -> Plan:
     run's CommLedger) re-targets the spec's machine with measured α/β/γ
     before anything is predicted, so planned sweeps rank configurations
     with machine-fitted constants instead of the static presets; the
-    Eq. 5–6 autotune then also optimizes against the fitted machine."""
-    if spec.schedule.bk is None:
-        raise NotImplementedError(
-            "schedule.bk=None opts into the Gram panel autotuner, which the port "
-            "does not have yet (kernels/tune.py, ROADMAP.md Queue 1 item 9); "
-            "give bk a width"
-        )
+    Eq. 5–6 autotune then also optimizes against the fitted machine.
+
+    ``device`` is where the run will compute (``Session`` passes its own):
+    with ``schedule.bk=None`` the kernel tuner's cache is probed for that
+    device's record. Without one the CUDA device's is probed, or — on a
+    box without a card — nothing (the summary says "tuned at build")."""
     machine = MACHINES[spec.machine]
     if calibration is not None:
         machine = calibration.machine(machine)
@@ -177,6 +192,16 @@ def plan(spec: ExperimentSpec, calibration: Calibration | None = None) -> Plan:
         gram_word_bytes=2 if sched.precision == "bf16" else None,
     )
     regime = classify_regime(st.m, st.n, st.zbar, cfg, machine)
+    tuned_panel = None
+    if sched.bk is None:
+        # read-only probe of the kernel tuner's cache (never tunes here)
+        from repro_torch.kernels.tune import PanelProfile, lookup_panel
+
+        kind = _tuner_device(device)
+        rec = None if kind is None else lookup_panel(
+            PanelProfile.from_stats(st, sched, mesh.p_c), device=kind)
+        if rec is not None:
+            tuned_panel = (rec["bk"], rec["bm"])
     return Plan(
         spec=spec,
         cost=cost,
@@ -187,4 +212,5 @@ def plan(spec: ExperimentSpec, calibration: Calibration | None = None) -> Plan:
         b_star=b_raw,
         calibrated=calibration is not None,
         recommended_delay=recommend_delay(st.m, st.n, st.zbar, cfg, machine),
+        tuned_panel=tuned_panel,
     )

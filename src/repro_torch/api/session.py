@@ -42,8 +42,16 @@ raises when there is none. The session and checkpoint format is the
 reference package's, so a checkpoint written by either resumes in the
 other. ``step_stream`` is the streaming door: each round trains on one
 fresh micro-batch (``repro_torch.serve``) instead of the resident rows.
-Not in the port yet, and refused with ``NotImplementedError``: the panel
-autotuner (``bk=None``).
+
+``schedule.bk=None`` opts into the Gram kernel's autotuner
+(``repro_torch.kernels.tune``): the session resolves it from the tuner's
+cache for its device, or tunes once on a miss, before it builds. On the
+CPU that gives the plain walk's (bk, bm), as the reference's session does;
+on the card the kernel's (tile, ks) (``self.gram_geometry``), carried to
+every launch of the Gram kernel, with ``bk``/``bm`` the static
+(512, None). The same opt-in owns the heavy-tail choice of the dense
+oracle (``select_gram_path``, device-keyed). Checkpoints key on the input
+spec, so tuning never moves a content hash.
 """
 
 from __future__ import annotations
@@ -99,8 +107,8 @@ class _EngineDriver:
     it)."""
 
     def __init__(self, tp: TeamProblem, x0: np.ndarray, sched: ParallelSGDSchedule,
-                 timed: bool = False):
-        self.tp, self.sched, self.timed = tp, sched, timed
+                 timed: bool = False, geometry: tuple[int, int] | None = None):
+        self.tp, self.sched, self.timed, self.geometry = tp, sched, timed, geometry
         self.rounds_done = 0
         self._x = torch.from_numpy(x0.copy()).to(tp.values.device)
         self._gp = global_problem(tp)
@@ -112,12 +120,14 @@ class _EngineDriver:
         if self.timed:
             for _ in range(int(k)):
                 t0 = time.perf_counter()
-                self._x = run_engine_chunk(tp, self._x, self.rounds_done, 1, self.sched)
+                self._x = run_engine_chunk(tp, self._x, self.rounds_done, 1, self.sched,
+                                           self.geometry)
                 self.sync()
                 self.ledger.add_round_seconds(time.perf_counter() - t0)
                 self.rounds_done += 1
         else:
-            self._x = run_engine_chunk(tp, self._x, self.rounds_done, k, self.sched)
+            self._x = run_engine_chunk(tp, self._x, self.rounds_done, k, self.sched,
+                                       self.geometry)
             self.rounds_done += int(k)
         self.ledger.rounds = self.rounds_done
 
@@ -143,7 +153,7 @@ class _EngineDriver:
         return float(engine_loss(self._gp, self._x))
 
     def phase_probes(self) -> dict:
-        return engine_phase_probes(self.tp, self.sched)
+        return engine_phase_probes(self.tp, self.sched, self.geometry)
 
     def write(self, fn) -> None:
         fn()
@@ -212,9 +222,45 @@ class Session:
         self.device = resolve_device(device)
         self.autosave_dir = Path(autosave_dir) if autosave_dir is not None else None
         self.input_spec = spec          # pre-plan (what checkpoints key on)
-        self._plan: Plan = plan(spec)
+        self._plan: Plan = plan(spec, device=self.device)
         self.spec = self._plan.spec     # post-autotune (what executes)
+        # the Gram kernel's tuned (tile, ks) on the card, else None
+        self.gram_geometry: tuple[int, int] | None = None
+        autotuned_panels = self.spec.schedule.bk is None
+        if autotuned_panels:
+            # bk=None opted into the kernel autotuner: resolve to the
+            # cached (or freshly tuned) shape for this device before
+            # anything is built. Checkpoints still key on input_spec, so
+            # the tuned value never moves a content hash.
+            from repro_torch.api.spec import dataset_stats
+            from repro_torch.kernels import tune
+
+            profile = tune.PanelProfile.from_stats(
+                dataset_stats(self.spec.dataset), self.spec.schedule, self.spec.mesh.p_c,
+            )
+            bk, bm = tune.resolve_panel(profile, run_on=self.device)
+            self.gram_geometry = tune.tuned_geometry(
+                tune.lookup_panel(profile, device=tune.device_kind(self.device)))
+            sched = dataclasses.replace(
+                self.spec.schedule,
+                bk=bk,
+                bm=self.spec.schedule.bm if self.spec.schedule.bm is not None else bm,
+            )
+            self.spec = dataclasses.replace(self.spec, schedule=sched)
         self.bundle = build_problem(self.spec, device=self.device)
+        if autotuned_panels:
+            # the opt-in also owns the gram-path choice: a heavy-tailed ELL
+            # width flips the bundle build to the dense oracle where the
+            # device's rule says so (logged once in tune)
+            sched = self.spec.schedule
+            built = self.bundle.team if self.bundle.team is not None else self.bundle.prob2d
+            width = int(built.indices.shape[-1])
+            gram = tune.select_gram_path(width, sched.s * sched.b, sched.gram,
+                                         device=tune.device_kind(self.device))
+            if gram != sched.gram:
+                self.spec = dataclasses.replace(
+                    self.spec, schedule=dataclasses.replace(sched, gram=gram)
+                )
         n = self.bundle.dataset.A.n
         x0 = np.zeros(n, np.float32) if x0 is None else np.asarray(x0, np.float32)
 
@@ -230,7 +276,8 @@ class Session:
 
         if self.spec.mesh.backend == "simulated":
             self._driver = _EngineDriver(self.bundle.team, x0, self.spec.schedule,
-                                         timed=self.spec.comm_timing)
+                                         timed=self.spec.comm_timing,
+                                         geometry=self.gram_geometry)
         else:
             mesh = _make_device_mesh(self.spec.mesh.p_r, self.spec.mesh.p_c)
             self._driver = HybridDriver(
@@ -241,6 +288,7 @@ class Session:
                 self.spec.schedule,
                 comm=TIMED if self.spec.comm_timing else MESH,
                 device=self.device,
+                geometry=self.gram_geometry,
             )
         # the driver commits rounds (and, timed, measures them) into it
         self.ledger = self._driver.ledger

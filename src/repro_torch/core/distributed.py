@@ -311,7 +311,7 @@ def on_rank0(write, device: torch.device) -> None:
 
 
 def _build_round_fn(prob: Hybrid2DProblem, sched: ParallelSGDSchedule,
-                    comm: Collectives = MESH):
+                    comm: Collectives = MESH, geometry: tuple[int, int] | None = None):
     """The per-rank round body: τ inner s-step iterations + the column
     average, all communication issued through the ``comm`` collectives.
     Shared by ``make_hybrid_step`` (which runs it) and
@@ -320,7 +320,8 @@ def _build_round_fn(prob: Hybrid2DProblem, sched: ParallelSGDSchedule,
 
     ``round_fn(idx_blk, val_blk, x_loc, round_idx)`` takes this rank's
     (rows_local, width) ELL block, its (n_loc,) weight shard and the
-    global round index (a host integer) and returns the new shard."""
+    global round index (a host integer) and returns the new shard.
+    ``geometry`` is the Gram kernel's tuned (tile, ks), or None."""
     s, b = sched.s, sched.b
     sb = s * b
     n_loc = prob.n_loc
@@ -345,7 +346,7 @@ def _build_round_fn(prob: Hybrid2DProblem, sched: ParallelSGDSchedule,
             # the D bundle-computes in between run while it is in flight
             x_loc = delayed_bundle_scan(
                 x_loc, slice_bundle=slice_bundle, bundles=bundles, n=n_loc,
-                sched=sched, eta=eta, objective=objective, comm=comm,
+                sched=sched, eta=eta, objective=objective, comm=comm, geometry=geometry,
             )
             return comm.allmean_rows(x_loc)
 
@@ -357,7 +358,7 @@ def _build_round_fn(prob: Hybrid2DProblem, sched: ParallelSGDSchedule,
             # corrections run on the fp32 upcast)
             g_part, v_part = bundle_gram_v(
                 bi, bv, x_loc, n_loc, gram=sched.gram, bk=sched.bk, bm=sched.bm,
-                precision=sched.precision,
+                precision=sched.precision, geometry=geometry,
             )
             g, v = comm.allreduce_cols(
                 wire_gv((g_part, v_part), sched.precision), calls_per_round=bundles
@@ -397,7 +398,8 @@ def hybrid_comm_ledger(prob: Hybrid2DProblem, sched: ParallelSGDSchedule,
 
 
 def make_hybrid_step(mesh: ProcessMesh, prob: Hybrid2DProblem,
-                     sched: ParallelSGDSchedule, *, comm: Collectives = MESH):
+                     sched: ParallelSGDSchedule, *, comm: Collectives = MESH,
+                     geometry: tuple[int, int] | None = None):
     """Return this rank's round callable ``(idx_blk, val_blk, x_loc,
     round_idx) → x_loc``: one HybridSGD round (τ inner s-step iterations
     + the column average) with ``comm`` bound to ``mesh``'s groups.
@@ -420,7 +422,7 @@ def make_hybrid_step(mesh: ProcessMesh, prob: Hybrid2DProblem,
         raise ValueError(
             f"make_hybrid_step needs mesh collectives (mesh/timed), got {comm.kind!r}"
         )
-    return _build_round_fn(prob, sched, comm.bind(mesh))
+    return _build_round_fn(prob, sched, comm.bind(mesh), geometry)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -449,7 +451,8 @@ class HybridDriver:
     ``device=None`` means ``cuda:(rank % device_count)`` (or an error
     without CUDA), as ``repro_torch.resolve_device`` rules. The rank holds
     nothing of the problem but its block: ``loss`` too is computed from
-    the blocks.
+    the blocks. ``geometry`` is the Gram kernel's tuned (tile, ks) for
+    this rank's column-local bundles (None: the kernel's default).
     """
 
     def __init__(
@@ -462,8 +465,10 @@ class HybridDriver:
         rounds_done: int = 0,
         comm: Collectives = MESH,
         device=None,
+        geometry: tuple[int, int] | None = None,
     ):
         self.mesh = mesh
+        self.geometry = geometry
         self.prob = prob
         self.cp = cp
         self._localizer = None  # built at the first streamed batch
@@ -473,7 +478,7 @@ class HybridDriver:
         self.device = resolve_device(device)
         self.ledger = hybrid_comm_ledger(prob, sched, comm)
         self.ledger.rounds = self.rounds_done
-        self._step = make_hybrid_step(mesh, prob, sched, comm=comm)
+        self._step = make_hybrid_step(mesh, prob, sched, comm=comm, geometry=geometry)
         i, j = mesh.row, mesh.col
         self._idx = prob.indices[i, j].to(self.device).contiguous()
         self._val = prob.values[i, j].to(self.device).contiguous()
@@ -554,7 +559,7 @@ class HybridDriver:
 
         def compute(i, v, x):
             return bundle_gram_v(i, v, x, prob.n_loc, gram=sched.gram, bk=sched.bk,
-                                 bm=sched.bm, precision=sched.precision)
+                                 bm=sched.bm, precision=sched.precision, geometry=self.geometry)
 
         # the probed sum carries the wire dtype: a bf16 schedule's
         # allreduce_gv reflects the halved payload

@@ -202,17 +202,20 @@ class ParallelSGDSchedule:
 
 def bundle_gram_v(
     indices, values, x, n: int, *, gram: str = "kernel", bk: int | None = 512,
-    bm: int | None = None, precision: str = "fp32",
+    bm: int | None = None, precision: str = "fp32", geometry: tuple[int, int] | None = None,
 ):
     """The shared s-bundle primitive: local (G, v) = (tril(YYᵀ,-1), Yx)
     for the ELL bundle Y, without densifying Y to (sb, n).
 
-    ``bk=None`` falls back to the static 512. The dense oracle has no
-    panels, so bk/bm/precision do not apply to it — its (G, v) is
-    always the fp32 reference."""
+    ``bk=None`` falls back to the static 512. ``geometry`` is the CUDA
+    kernel's tuned (tile, ks) (``repro_torch.kernels.tune``; None: its
+    default), read only by ``gram="kernel"`` on CUDA tensors. The dense
+    oracle has no panels, so bk/bm/precision do not apply to it — its
+    (G, v) is always the fp32 reference."""
     bk = 512 if bk is None else bk
     if gram == "kernel":
-        return ell_gram_and_v(indices, values, x, n=n, bk=bk, bm=bm, precision=precision)
+        return ell_gram_and_v(indices, values, x, n=n, bk=bk, bm=bm, precision=precision,
+                              geometry=geometry)
     if gram == "blocked":
         return ell_gram_and_v_blocked(
             indices, values, x, n=n, bk=bk, bm=bm, precision=precision
@@ -326,7 +329,8 @@ def inner_corrections(
 def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
                         sched: ParallelSGDSchedule, eta,
                         objective: Objective = LOGISTIC,
-                        comm: Collectives = COUNTING):
+                        comm: Collectives = COUNTING,
+                        geometry: tuple[int, int] | None = None):
     """The delay-D software pipeline over one round's τ/s bundles, for
     ``sched.delay ≥ 1`` (DaSGD, arXiv:2006.00441).
 
@@ -355,7 +359,8 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
     ``comm`` is the collectives the two backends issue through: the
     simulated engine passes nothing (``COUNTING``), the 2D mesh its bound
     mesh collectives (the issue then starts an asynchronous Allreduce
-    over the "cols" group and the await waits on it)."""
+    over the "cols" group and the await waits on it). ``geometry`` is the
+    Gram kernel's tuned (tile, ks), passed to ``bundle_gram_v``."""
     s, b = sched.s, sched.b
     lam = objective.l2
     scale = eta_over_b(eta, b)
@@ -364,7 +369,7 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
     def compute_issue(x, t):
         idx, val = slice_bundle(t)
         g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
-                             bm=sched.bm, precision=sched.precision)
+                             bm=sched.bm, precision=sched.precision, geometry=geometry)
         issued = comm.issue_allreduce_cols(
             wire_gv((g, v), sched.precision), calls_per_round=bundles
         )
@@ -389,7 +394,8 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
 
 def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
                            sched: ParallelSGDSchedule,
-                           objective: Objective = LOGISTIC):
+                           objective: Objective = LOGISTIC,
+                           geometry: tuple[int, int] | None = None):
     """τ inner iterations (= τ/s s-bundles) on one row team's ELL rows.
     ``round_idx`` is a host integer and ``eta`` a float32 scalar;
     ``objective`` supplies the residual and (when l2 > 0) the decay
@@ -412,7 +418,7 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
     if sched.delay:
         return delayed_bundle_scan(
             x, slice_bundle=slice_bundle, bundles=bundles, n=n, sched=sched,
-            eta=eta, objective=objective,
+            eta=eta, objective=objective, geometry=geometry,
         )
 
     for t in range(bundles):
@@ -432,7 +438,7 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
             u = objective.residual(unwire_gv(yx, sched.precision, x.dtype))
         else:
             g, v = bundle_gram_v(idx, val, x, n, gram=sched.gram, bk=sched.bk,
-                                 bm=sched.bm, precision=sched.precision)
+                                 bm=sched.bm, precision=sched.precision, geometry=geometry)
             # row-team Allreduce of the bundle (G, v) — identity here
             # (the simulated rank computes the full reduction), the
             # recorded payload when the round body is captured.
@@ -452,7 +458,8 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
     return x
 
 
-def _one_round(tp: TeamProblem, x, r: int, eta, sched: ParallelSGDSchedule):
+def _one_round(tp: TeamProblem, x, r: int, eta, sched: ParallelSGDSchedule,
+               geometry: tuple[int, int] | None = None):
     """One outer round: τ inner iterations per row team + the p_r-team
     average. The single shared round body — the monolithic loop and the
     chunked path both call exactly this function, so the two cannot
@@ -462,7 +469,7 @@ def _one_round(tp: TeamProblem, x, r: int, eta, sched: ParallelSGDSchedule):
     xs = torch.stack(
         [
             _team_inner_iterations(
-                tp.indices[i], tp.values[i], tp.n, x, r, eta, sched, tp.objective
+                tp.indices[i], tp.values[i], tp.n, x, r, eta, sched, tp.objective, geometry
             )
             for i in range(tp.p)
         ]
@@ -497,9 +504,11 @@ def run_engine_chunk(
     round_offset: int,
     k: int,
     sched: ParallelSGDSchedule,
+    geometry: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Run ``k`` rounds starting at global round ``round_offset`` and
     return the new weights (on the problem's device; no host sync).
+    ``geometry``: the Gram kernel's tuned (tile, ks), or None.
 
     Calling it with offsets 0, k, 2k, … reproduces
     ``run_parallel_sgd``'s iterate sequence exactly, because both paths
@@ -509,7 +518,7 @@ def run_engine_chunk(
     check_delay(sched)
     eta = np.float32(sched.eta)
     for r in range(int(round_offset), int(round_offset) + int(k)):
-        x = _one_round(tp, x, r, eta, sched)
+        x = _one_round(tp, x, r, eta, sched, geometry)
     return x
 
 
@@ -602,7 +611,8 @@ def engine_comm_ledger(
     return CommLedger(rates=rates, delay=sched.delay)
 
 
-def engine_phase_probes(tp: TeamProblem, sched: ParallelSGDSchedule) -> dict:
+def engine_phase_probes(tp: TeamProblem, sched: ParallelSGDSchedule,
+                        geometry: tuple[int, int] | None = None) -> dict:
     """Per-phase probes for the simulated engine — the §6.5 phase split
     (compute vs. the two comm phases) on the round body's real payload
     shapes, *outside* the training step (which they never touch).
@@ -623,7 +633,7 @@ def engine_phase_probes(tp: TeamProblem, sched: ParallelSGDSchedule) -> dict:
 
     def compute(i, v, x):
         return bundle_gram_v(i, v, x, tp.n, gram=sched.gram, bk=sched.bk, bm=sched.bm,
-                             precision=sched.precision)
+                             precision=sched.precision, geometry=geometry)
 
     g0 = torch.zeros((sb, sb), dtype=torch.float32, device=dev)
     v0 = torch.zeros((sb,), dtype=torch.float32, device=dev)

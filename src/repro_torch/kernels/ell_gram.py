@@ -108,22 +108,72 @@ class GramGeometry:
         return self.cap.bit_length() - 1
 
 
-def gram_geometry(sb: int, w: int) -> GramGeometry:
-    """Launch geometry of the CUDA kernel for an (sb, w) bundle. The tile
-    and the threads a pair follow from the number of blocks (see
-    ``FILL_BLOCKS``); either way a block has 512 threads, the kernel's
-    bound. The row is cut into the fewest chunks
-    of at most ``MAX_CHUNK`` entries, of equal size but the last, whose
-    tables fit; a table has a power of two of slots, at least twice a
-    chunk and four times up to ``TABLE_SLOTS``. Shared memory holds, per
-    block, ``tile`` tables of cap + 4 keys and values, ``tile`` staged
-    i-rows and ``tile`` staged j-rows of ``chunk`` ids and values, the
-    i-rows' counts and v sums, and the ks partial sums of each pair — the
-    layout the kernel carves."""
+# The (tile, ks) pairs the kernel can run: whole warps (the warp ballot
+# that compacts an i-row and the shuffle that sums v take full masks, and
+# the staging loops hand rows to warps), at most MAX_THREADS threads, and a
+# tile of 4, 8 or 16 rows. With a tile of 8 or 16 the 8 lanes of a quarter
+# warp read 8 different tables (the bank layout); a tile of 4 is right but
+# puts two lanes on one table.
+TILES = (4, 8, 16)
+MAX_THREADS = 512
+
+
+def check_tile_ks(tile: int, ks: int) -> None:
+    """Raise ``ValueError`` unless the kernel supports ``tile`` × ``tile``
+    tiles with ``ks`` threads a pair (see ``TILES``)."""
+    if tile not in TILES or ks < 1:
+        raise ValueError(f"tile={tile} (one of {TILES}), ks={ks} (≥ 1): not a geometry of the kernel")
+    threads = tile * tile * ks
+    if threads % 32 or threads > MAX_THREADS:
+        raise ValueError(
+            f"tile={tile}, ks={ks} gives {threads} threads a block: the kernel needs a "
+            f"multiple of 32 up to {MAX_THREADS}"
+        )
+
+
+def supported_tile_ks() -> tuple[tuple[int, int], ...]:
+    """Every (tile, ks) the kernel supports with ks a power of two: the
+    autotuner's candidates on the card."""
+    pairs = []
+    for tile in TILES:
+        ks = 1
+        while tile * tile * ks <= MAX_THREADS:
+            if (tile * tile * ks) % 32 == 0:
+                pairs.append((tile, ks))
+            ks *= 2
+    return tuple(pairs)
+
+
+def default_tile_ks(sb: int) -> tuple[int, int]:
+    """The (tile, ks) the kernel takes for ``sb`` rows without a tuned
+    geometry: the ``FILL_BLOCKS`` rule."""
+    tiles16 = -(-sb // 16)
+    return (16, 2) if tiles16 * (tiles16 + 1) // 2 >= FILL_BLOCKS else (8, 8)
+
+
+def gram_geometry(sb: int, w: int, tile: int | None = None, ks: int | None = None) -> GramGeometry:
+    """Launch geometry of the CUDA kernel for an (sb, w) bundle. Without
+    ``tile``/``ks`` the tile and the threads a pair follow from the number
+    of blocks (``default_tile_ks``); given both (a tuned geometry) they
+    must be a pair the kernel supports (``check_tile_ks``), else
+    ``ValueError``. Either way the chunk, the table capacity and the
+    shared memory follow from the actual ``w``, so one tuned (tile, ks)
+    holds for every width a build produces. The row is cut into the
+    fewest chunks of at most ``MAX_CHUNK`` entries, of equal size but the
+    last, whose tables fit; a table has a power of two of slots, at least
+    twice a chunk and four times up to ``TABLE_SLOTS``. Shared memory
+    holds, per block, ``tile`` tables of cap + 4 keys and values, ``tile``
+    staged i-rows and ``tile`` staged j-rows of ``chunk`` ids and values,
+    the i-rows' counts and v sums, and the ks partial sums of each pair —
+    the layout the kernel carves."""
     if sb < 1 or w < 1:
         raise ValueError(f"empty bundle (sb={sb}, w={w})")
-    tiles16 = -(-sb // 16)
-    tile, ks = (16, 2) if tiles16 * (tiles16 + 1) // 2 >= FILL_BLOCKS else (8, 8)
+    if (tile is None) != (ks is None):
+        raise ValueError(f"give both tile and ks or neither, got tile={tile}, ks={ks}")
+    if tile is None:
+        tile, ks = default_tile_ks(sb)
+    else:
+        check_tile_ks(tile, ks)
 
     def layout(n_chunks: int) -> tuple[int, int, int]:
         chunk = -(-w // n_chunks)
@@ -231,15 +281,17 @@ def ell_gram_and_v(
     bk: int = 512,
     bm: int | None = None,
     precision: str = "fp32",
+    geometry: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(G, v) = (tril(Y Yᵀ, -1), Y·x) for the ELL bundle Y.
 
     CUDA tensors: one launch of the Hopper kernel on the current
     stream, no synchronisation; ``bk``/``bm`` are ignored (the kernel's
-    result does not depend on them) and every column id must lie in
+    result does not depend on them), ``geometry`` is a tuned (tile, ks)
+    (None: ``gram_geometry``'s default), and every column id must lie in
     [0, n) — that is not checked on the device. A failed build or
     launch raises. CPU (and meta) tensors: the plain
-    ``ell_gram_and_v_blocked``. Each kernel launch adds one to
+    ``ell_gram_and_v_blocked`` (``geometry`` does not apply). Each kernel launch adds one to
     ``ell_gram_and_v.launches[precision]``."""
     check_precision(precision)
     if not (indices.device == values.device == x.device):
@@ -268,7 +320,7 @@ def ell_gram_and_v(
     if not (indices.is_contiguous() and values.is_contiguous() and x.is_contiguous()):
         raise ValueError("indices, values and x must be contiguous")
 
-    geo = gram_geometry(sb, w)
+    geo = gram_geometry(sb, w, *(geometry or (None, None)))
     g = torch.empty((sb, sb), dtype=torch.float32, device=values.device)
     v = torch.empty((sb,), dtype=torch.float32, device=values.device)
     with torch.cuda.device(values.device):

@@ -11,10 +11,14 @@ checkpoint is only ever resumed into the exact experiment that wrote it
 
 The format (``"repro-session-v1"``, an .npz + .json pair, the manifest's
 self-hash and the payload's sha256) is the reference package's, byte for
-byte: a checkpoint written by either package loads in the other. This
-module imports neither the reference nor torch — the weights cross as
-numpy arrays. (The reference's pytree checkpoints, the NN trainer's
-format, are not in the port.)
+byte: a checkpoint written by either package loads in the other. The
+weights cross as numpy arrays.
+
+The NN trainer's pytree checkpoints (``save_checkpoint`` /
+``restore_checkpoint``) are the reference's format too: the same .npz +
+.json pair under the same atomic write, each leaf under its path key
+(``0/layers/0/wq``) with its stacked shape, so a trainer checkpoint
+crosses between the packages both ways.
 
 Durability contract:
 
@@ -39,7 +43,9 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from repro_torch._tree import path_key, tree_paths, tree_replace_leaves
 from repro_torch.core import faults
 from repro_torch.obs import trace as obs_trace
 
@@ -168,6 +174,60 @@ def _first_spec_diff(ck: dict, ours: dict, prefix: str = "") -> str | None:
         elif a != b:
             return f"{prefix}{key}: checkpoint has {a!r}, session has {b!r}"
     return None
+
+
+# ---------------- pytree checkpoints (NN training loop) ----------------
+
+
+def _flatten(tree) -> dict[str, np.ndarray]:
+    """Each leaf of a tree (nested dicts and tuples of tensors or arrays)
+    as a host array under its path key — the reference's key strings
+    (``0/layers/0/wq``) and stacked shapes. bf16 leaves widen to float32."""
+    flat = {}
+    for path, leaf in tree_paths(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().to("cpu")
+            leaf = (leaf.to(torch.float32) if leaf.dtype == torch.bfloat16 else leaf).numpy()
+        flat[path_key(path)] = np.asarray(leaf)
+    return flat
+
+
+def save_checkpoint(path: str | os.PathLike, tree, step: int) -> None:
+    """The trainer's state (a tree) at ``step`` as an .npz + .json pair,
+    written atomically, readable by the reference's
+    ``restore_checkpoint`` and the other way round."""
+    flat = _flatten(tree)
+    _write_atomic(Path(path), flat, {"step": step, "keys": sorted(flat)})
+
+
+def restore_checkpoint(path: str | os.PathLike, tree_like):
+    """Restore into the structure of ``tree_like``; returns (tree, step)
+    or (None, 0) if absent. Each leaf takes the dtype and device of the
+    ``tree_like`` leaf in its place (a tensor, or a numpy array).
+    Corruption (truncated npz, garbled manifest) raises
+    ``CheckpointCorruptError``, never a raw traceback."""
+    path = Path(path)
+    npz, manifest = path.with_suffix(".npz"), path.with_suffix(".json")
+    if not npz.exists() or not manifest.exists():
+        return None, 0
+    meta = _read_manifest(manifest, npz)
+    data = _load_npz(npz)
+    new_leaves = []
+    for path_elems, leaf in tree_paths(tree_like):
+        key = path_key(path_elems)
+        try:
+            arr = data[key]
+        except KeyError as e:
+            raise CheckpointCorruptError(
+                f"{npz}: checkpoint payload is missing key {key!r}"
+            ) from e
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"checkpoint shape mismatch at {key}: {arr.shape} vs {tuple(leaf.shape)}")
+        if isinstance(leaf, torch.Tensor):
+            new_leaves.append(torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype))
+        else:
+            new_leaves.append(arr.astype(np.asarray(leaf).dtype))
+    return tree_replace_leaves(tree_like, new_leaves), meta["step"]
 
 
 # ---------------- session checkpoints (repro_torch.api.Session) ----------------

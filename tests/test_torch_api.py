@@ -274,7 +274,7 @@ def test_run_decaying_tau_matches_the_reference():
         np.testing.assert_allclose(g.losses, w.losses, **LOSS_TOL)
 
 
-def test_unported_branches_raise_naming_their_roadmap_item(tmp_path):
+def test_unported_branches_raise_naming_their_roadmap_item(tmp_path, monkeypatch):
     _, t = _pair()
     # the mesh backend is ported: it builds the mesh layout, and without a
     # process group it refuses to run, saying how to start one
@@ -285,11 +285,13 @@ def test_unported_branches_raise_naming_their_roadmap_item(tmp_path):
         T.Session(mesh, device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         T.run(mesh, device="cpu")
+    # the panel autotuner (item 9) is ported: bk=None plans (reading the
+    # tuner's cache only) and the session resolves it before it builds
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tune"))
     _, auto = _pair(sched_kw=dict(bk=None))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.plan(auto)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.Session(auto, device="cpu")
+    assert "bk=auto (tuned at build)" in T.plan(auto, device="cpu").summary()
+    resolved = T.Session(auto, device="cpu").spec.schedule
+    assert isinstance(resolved.bk, int) and resolved.bk > 0
     # the streaming door (item 11) is ported: a stream spec builds and
     # steps its declared source, an offline session has no stream to step
     j_stream, stream = _pair(**CONSTRUCTED["stream"])
@@ -302,10 +304,14 @@ def test_unported_branches_raise_naming_their_roadmap_item(tmp_path):
     np.testing.assert_allclose(ev.x, want.x, **X_TOL)
     with pytest.raises(ValueError, match="no stream"):
         make_stream_source(t)
-    # the pytree half of the checkpoint module is not in the port at all
-    from repro_torch.train import checkpoint
+    # the pytree half of the checkpoint module is ported (item 13's first
+    # path); the trainer's multi-pod mesh still raises naming its item
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train import checkpoint, train
 
-    assert not hasattr(checkpoint, "save_checkpoint") and not hasattr(checkpoint, "restore_checkpoint")
+    assert callable(checkpoint.save_checkpoint) and callable(checkpoint.restore_checkpoint)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        train(reduced(get_config("qwen2.5-3b")), steps=1, mesh=object(), device="cpu")
 
 
 def test_api_exports_match_the_reference():

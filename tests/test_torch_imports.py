@@ -34,6 +34,15 @@ SLICE_MODULES = [
     "repro_torch.serve", "repro_torch.serve.stream", "repro_torch.serve.ingest",
     "repro_torch.serve.store", "repro_torch.serve.server", "repro_torch.serve.controller",
     "repro_torch.launch.serve", "repro_torch.launch.sweep",
+    "repro_torch.kernels.tune", "repro_torch.launch.roofline", "repro_torch.models",
+    "repro_torch.models.config", "repro_torch.models.init", "repro_torch.models.blocks",
+    "repro_torch.models.transformer", "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.qwen2_5_3b", "repro_torch.configs.gemma_2b", "repro_torch.configs.granite_34b",
+    "repro_torch.configs.mistral_nemo_12b", "repro_torch.configs.musicgen_medium",
+    "repro_torch.configs.llava_next_mistral_7b", "repro_torch.configs.deepseek_v2_lite_16b",
+    "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.falcon_mamba_7b", "repro_torch.optim", "repro_torch.optim.sgd",
+    "repro_torch.train.data", "repro_torch.train.loop", "repro_torch.launch.train",
 ]
 
 _IMPORT_ALL = """
@@ -112,6 +121,11 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
     from repro_torch.serve.ingest import stream_team_problem
     from repro_torch.sparse.ell import ell_from_csr
     from repro_torch.sparse.synthetic import make_skewed_csr
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import tune
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.train import train
 
     a = make_skewed_csr(16, 20, 3, 0.0, seed=0)
     y = np.ones(16)
@@ -135,6 +149,12 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
         lambda: stream_team_problem(DriftStream(n=20, rows=8).batch(0), 2, 20, None),
         lambda: serve_cli.main(["--spec", str(ROOT / "examples/specs/serve_drift.json"), "--rounds", "1"]),
         lambda: sweep_cli.main(["--spec", str(ROOT / "examples/specs/rcv1_hybrid.json")]),
+        lambda: init_params(reduced(get_config("qwen2.5-3b"))),
+        lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
+        lambda: train(reduced(get_config("qwen2.5-3b")), steps=1),
+        lambda: train_cli.main(["--arch", "qwen2.5-3b", "--steps", "1"]),
+        lambda: tune.device_kind(),
+        lambda: tune.tune_panel(tune.PanelProfile(rows=8, width=4, n_local=64)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
