@@ -37,11 +37,18 @@ solver phase (on an empty card), the language-model trainer
 depth cut to 2 layers: the loss at weights carried to the card against
 the CPU's at the same weights, 20 adamw steps of 8 × 512 tokens in fp32
 whose loss must fall, tokens/s and peak device memory (one ``{"lm": ...}``
-JSON line); and prints
+JSON line), then the rest of the decoder zoo (``zoo_phase``): deepseek-v2-lite-16b
+(MLA, MoE) through ``train()`` and falcon-mamba-7b (Mamba-1) through
+``launch/steps.py``'s ``make_train_step`` with remat and microbatches, both at
+their published widths cut to 2 layers — the first loss and 64 decode steps
+against the CPU's, decode ≡ forward, 10 adamw steps whose loss must fall,
+tokens/s, peak memory, host syncs a train and a decode step, decode tokens/s
+against a 512-deep cache, prefill time — and jamba reduced (decode ≡ forward,
+the first loss; one ``{"zoo": ...}`` JSON line); and prints
 
   * the GPU's name and power limit,
   * one JSON line each ``{"tune": ...}``, ``{"front_door": ...}``,
-    ``{"serve": ...}``, ``{"mesh": ...}`` and ``{"lm": ...}``,
+    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"lm": ...}`` and ``{"zoo": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
     bound and library yardstick,
@@ -57,8 +64,9 @@ times it in turns with this one at each timed shape and mode: an
 eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
 block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase alone,
-its 2 × 2 mesh over NCCL with one rank a card, on a machine with four cards. Every run prints the launch floor: the
-device time of a one-element PyTorch operation in a CUDA graph.
+its 2 × 2 mesh over NCCL with one rank a card, on a machine with four cards. ``--zoo`` runs the zoo
+phase alone. Every run prints the launch floor: the device time of a one-element PyTorch operation in a
+CUDA graph.
 
 Any failed phase ends the process with a non-zero exit code; there is no
 CPU mode: without a CUDA device the script fails at once.
@@ -77,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -147,6 +156,25 @@ DRIFT_ACC_FALL, DRIFT_ACC_RECOVER = 0.4, 0.5
 # weights within 1e-4 relative of the CPU's (float32 sums in another order)
 LM_LAYERS, LM_STEPS, LM_BATCH, LM_SEQ = 2, 20, 8, 512
 LM_FIRST_LOSS_RTOL = 1e-4
+# the zoo phase: deepseek-v2-lite-16b and falcon-mamba-7b at their published
+# widths, depth cut to 2 layers, 10 adamw steps of 8 × 512 fp32 tokens each
+# (falcon-mamba in microbatches of 2 sequences, 4 a step, with remat: the
+# scan's (2, 256, 8192, 16) float32 levels of one layer at a time); decode ≡
+# forward over 64 decode steps of a 1 × 64 sequence at the reference's own
+# 2e-3; the card against the CPU (first loss, decode logits) at 1e-4
+# relative; decode tokens/s at batch 8 against a 512-deep cache, 32 steps
+ZOO_LAYERS, ZOO_STEPS, ZOO_BATCH, ZOO_SEQ, ZOO_MAMBA_MICROBATCH = 2, 10, 8, 512, 2
+# adamw's rate for each: at 3e-4 deepseek's loss fell 0.003 over the 10 steps,
+# inside its ±0.03 spread from batch to batch; at 1e-3 falcon-mamba's rose
+# 11.547 → 11.949 (no warm-up), at 3e-4 it fell 11.555 → 11.521 (NVIDIA H100
+# 80GB HBM3, 700.00 W)
+ZOO_LR = {"deepseek-v2-lite-16b": 1e-3, "falcon-mamba-7b": 3e-4}
+# each gradient leaf, card vs CPU at the carried weights (1 × 128 tokens):
+# max |Δ| over the leaf's max |g|; float32 sums over up to 8,192 terms in
+# another order, with room for leaves whose token sums cancel
+ZOO_GRAD_RTOL = 1e-3
+ZOO_DECODE_LEN, ZOO_DECODE_FORWARD_TOL, ZOO_CPU_RTOL = 64, 2e-3, 1e-4
+ZOO_SERVE_BATCH, ZOO_SERVE_DEPTH, ZOO_SERVE_STEPS = 8, 512, 32
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
@@ -1321,6 +1349,327 @@ def lm_phase(smi: str, device=None) -> dict:
             "init_s": init_s, "phase_s": time.perf_counter() - started}
 
 
+def count_syncs(fn):
+    """``fn()`` with CUDA's sync debug mode at "warn": returns its result,
+    the number of calls in it that made the host wait for the card (a copy
+    to the host, a ``.tolist()``, a stream synchronize) and where each was
+    made ({"file:line": count}). A sync in the backward pass, which runs on
+    autograd's device thread, is reported at the line that resets the mode."""
+    sync()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    at: dict = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            path = pathlib.Path(w.filename).resolve()  # this repo's file, or an installed package's
+            where = path.relative_to(ROOT) if path.is_relative_to(ROOT) else re.sub(r".*/site-packages/", "", str(path))
+            at[f"{where}:{w.lineno}"] = at.get(f"{where}:{w.lineno}", 0) + 1
+    return out, sum(at.values()), at
+
+
+def _rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|, on the host in float64."""
+    got, want = got.detach().to("cpu", torch.float64), want.detach().to("cpu", torch.float64)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _decode_checks(cfg, host, card, device, out: dict) -> None:
+    """Decode ≡ forward on the card (``ZOO_DECODE_LEN`` ``serve_step``s of
+    a 1 × ``ZOO_DECODE_LEN`` sequence against ``forward``'s logits at each
+    position, ``ZOO_DECODE_FORWARD_TOL``), then the card's decode logits
+    against the CPU's on the same weights (``ZOO_CPU_RTOL``)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import forward, init_cache
+    from repro_torch.train.data import MarkovTextStream
+
+    serve = make_serve_step(cfg)
+    toks, _ = next(MarkovTextStream(cfg.vocab_size, seed=1).batches(1, ZOO_DECODE_LEN))
+    toks = torch.from_numpy(toks)
+
+    def decode(params, dev):
+        cache = init_cache(cfg, 1, ZOO_DECODE_LEN, dtype=torch.float32, device=dev)
+        outs = []
+        for i in range(ZOO_DECODE_LEN):
+            logits, cache = serve(params, cache, toks[:, i : i + 1].to(dev))
+            outs.append(logits[:, 0])
+        check(int(cache["pos"]) == ZOO_DECODE_LEN and cache["pos"].device.type == torch.device(dev).type,
+              f"{cfg.name}: the decode position is {cache['pos']}")
+        return torch.stack(outs, dim=1)
+
+    with torch.no_grad():
+        full = forward(cfg, card, toks.to(device))
+    dec = decode(card, device)
+    gap = float((dec - full).abs().max())
+    ok = bool(torch.allclose(dec, full, rtol=ZOO_DECODE_FORWARD_TOL, atol=ZOO_DECODE_FORWARD_TOL))
+    dec_cpu = decode(host, "cpu")
+    rel = _rel_gap(dec, dec_cpu)
+    log(f"[zoo  ] {cfg.name}: decode ≡ forward over {ZOO_DECODE_LEN} steps, max |Δ| {gap:.3g} (rtol = atol = "
+        f"{ZOO_DECODE_FORWARD_TOL:g}); card decode vs CPU decode relative {rel:.3g} (limit {ZOO_CPU_RTOL:g})")
+    check(ok and math.isfinite(gap), f"{cfg.name}: decode differs from forward on the card by {gap}")
+    check(rel <= ZOO_CPU_RTOL, f"{cfg.name}: the card's decode logits are {rel} from the CPU's")
+    out.update(decode_forward_max_abs=gap, decode_cpu_rel=rel, decode_steps=ZOO_DECODE_LEN)
+
+
+def _first_loss(cfg, host, card, out: dict) -> None:
+    """The loss and every gradient at the carried weights on 1 × 128
+    tokens, card vs CPU: the loss within ``ZOO_CPU_RTOL`` relative, each
+    gradient leaf within ``ZOO_GRAD_RTOL`` of its largest entry."""
+    from repro_torch._tree import tree_paths, tree_replace_leaves
+    from repro_torch.models import lm_loss
+    from repro_torch.train.data import MarkovTextStream
+
+    toks, targs = next(MarkovTextStream(cfg.vocab_size, seed=0).batches(1, 128))
+
+    def loss_and_grads(params):
+        dev = params["embed"].device
+        paths, leaves = zip(*[(path, t.detach().requires_grad_(True)) for path, t in tree_paths(params)])
+        loss = lm_loss(cfg, tree_replace_leaves(params, list(leaves)), torch.from_numpy(toks).to(dev),
+                       torch.from_numpy(targs).to(dev))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return float(loss), paths, grads
+
+    loss_cpu, paths, grads_cpu = loss_and_grads(host)
+    loss_card, _, grads_card = loss_and_grads(card)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_rel = {"/".join(map(str, path)): _rel_gap(g, want) for path, g, want in zip(paths, grads_card, grads_cpu)}
+    worst = max(grad_rel, key=grad_rel.get)
+    del grads_card, grads_cpu
+    log(f"[zoo  ] {cfg.name}: at the carried weights on 1 × 128 tokens: loss card {loss_card:.7f}, CPU {loss_cpu:.7f}, "
+        f"relative {rel:.3g} (limit {ZOO_CPU_RTOL:g}); gradients card vs CPU, worst leaf {worst} "
+        f"{grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves")
+    check(math.isfinite(loss_card) and rel <= ZOO_CPU_RTOL, f"{cfg.name}: the card's first loss is {rel} from the CPU's")
+    check(grad_rel[worst] <= ZOO_GRAD_RTOL,
+          f"{cfg.name}: the card's gradient of {worst} is {grad_rel[worst]} from the CPU's")
+    out.update(first_loss_card=loss_card, first_loss_cpu=loss_cpu, first_loss_rel=rel, grad_rel_worst=grad_rel[worst],
+               grad_rel_worst_leaf=worst)
+
+
+def _draw(cfg, device):
+    """Weights drawn on the host from seed 0 (float32) and their copy on
+    the card; the count of parameters and the seconds it took."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    host = init_params(cfg, dtype=torch.float32, device="cpu", seed=0)
+    card = tree_map(lambda t: t.to(device), host)
+    return host, card, sum(t.numel() for t in tree_leaves(host)), time.perf_counter() - t0
+
+
+def _serve_numbers(cfg, card, device, out: dict) -> None:
+    """Decode tokens/s of ``serve_step`` at batch ``ZOO_SERVE_BATCH`` against
+    a ``ZOO_SERVE_DEPTH``-deep cache of random entries (the median of three
+    windows of ``ZOO_SERVE_STEPS`` steps), the host syncs a decode step, and the prefill time of ``make_prefill_step`` on
+    ``ZOO_BATCH`` × ``ZOO_SEQ`` tokens (median of 3, after a warm-up)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_cache
+
+    serve = make_serve_step(cfg)
+    gen = torch.Generator(device=device).manual_seed(2)
+    cache = init_cache(cfg, ZOO_SERVE_BATCH, ZOO_SERVE_DEPTH + 3 * ZOO_SERVE_STEPS + 3, dtype=torch.float32,
+                       device=device)
+    cache = {"layers": tree_map(lambda t: torch.randn(t.shape, generator=gen, device=device), cache["layers"]),
+             "pos": torch.tensor(ZOO_SERVE_DEPTH, dtype=torch.int32, device=device)}
+    tok = torch.randint(0, cfg.vocab_size, (ZOO_SERVE_BATCH, 1), generator=gen, device=device)
+    for _ in range(2):
+        _, cache = serve(card, cache, tok)
+    (_, cache), syncs, syncs_at = count_syncs(lambda: serve(card, cache, tok))
+    rates = []
+    for _ in range(3):  # three windows of ZOO_SERVE_STEPS steps, the median kept
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_SERVE_STEPS):
+            logits, cache = serve(card, cache, tok)
+        sync()
+        rates.append(ZOO_SERVE_BATCH * ZOO_SERVE_STEPS / (time.perf_counter() - t0))
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite decode logits at depth {ZOO_SERVE_DEPTH}")
+    del cache
+    prefill = make_prefill_step(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ), generator=gen, device=device)
+    prefill(card, toks)
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        last = prefill(card, toks)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    check(last.shape == (ZOO_BATCH, 1, cfg.vocab_size) and bool(torch.isfinite(last).all()),
+          f"{cfg.name}: prefill gave {tuple(last.shape)}")
+    out.update(decode_tokens_per_s=statistics.median(rates), decode_tokens_per_s_all=rates, decode_batch=ZOO_SERVE_BATCH,
+               decode_depth=ZOO_SERVE_DEPTH, syncs_decode_step=syncs, syncs_decode_step_at=syncs_at,
+               prefill_ms=1e3 * statistics.median(walls),
+               prefill_ms_all=[1e3 * w for w in walls])
+    log(f"[zoo  ] {cfg.name}: decode {out['decode_tokens_per_s']:.0f} tokens/s at batch {ZOO_SERVE_BATCH} against a "
+        f"{ZOO_SERVE_DEPTH}-deep cache, {syncs} host syncs a decode step ({syncs_at}); "
+        f"prefill of {ZOO_BATCH} × {ZOO_SEQ} tokens "
+        f"{out['prefill_ms']:.1f} ms")
+
+
+def _train_deepseek(cfg, card, device, lr: float, out: dict) -> None:
+    """``train()`` (what ``python -m repro_torch.launch.train`` runs): a
+    warm-up step, then ``ZOO_STEPS`` adamw steps of ``ZOO_BATCH`` ×
+    ``ZOO_SEQ`` tokens; then the host syncs of one more step."""
+    from repro_torch.optim.sgd import adamw
+    from repro_torch.train.data import MarkovTextStream
+    from repro_torch.train.loop import make_train_step, train
+
+    train(cfg, steps=1, batch=ZOO_BATCH, seq_len=ZOO_SEQ, params=card, device=device, log_every=1, opt=adamw(lr))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    report = train(cfg, steps=ZOO_STEPS, batch=ZOO_BATCH, seq_len=ZOO_SEQ, params=card, device=device, log_every=1,
+                   opt=adamw(lr))
+    peak = torch.cuda.max_memory_allocated()
+    # one more step, its host syncs counted; the parameters and moments it
+    # starts from, and its own peak above them
+    opt = adamw(lr)
+    step = make_train_step(cfg, opt)
+    toks, targs = next(MarkovTextStream(cfg.vocab_size, seed=3).batches(ZOO_BATCH, ZOO_SEQ))
+    batch = (torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device))
+    state = (card, opt.init(card))
+    sync()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, syncs, syncs_at = count_syncs(lambda: step(state, batch))
+    step_peak = torch.cuda.max_memory_allocated()
+    del state
+    out.update(trainer="train() (train/loop.py): one step a batch, no remat", lr=lr, losses=report.losses,
+               tokens_per_s=report.tokens_per_s, max_memory_allocated=peak, syncs_train_step=syncs,
+               syncs_train_step_at=syncs_at, step_resident_bytes=resident, step_peak_bytes=step_peak)
+
+
+def _train_mamba(cfg, card, device, lr: float, out: dict) -> None:
+    """``launch/steps.py``'s ``make_train_step`` with remat and
+    ``ZOO_BATCH // ZOO_MAMBA_MICROBATCH`` microbatches a step: a warm-up
+    step, then ``ZOO_STEPS`` adamw steps (the host syncs of the first of
+    them counted)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.sgd import adamw
+    from repro_torch.train.data import MarkovTextStream
+
+    opt = adamw(lr)
+    step = make_train_step(cfg, opt=opt, microbatch_per_shard=ZOO_MAMBA_MICROBATCH)
+    it = MarkovTextStream(cfg.vocab_size, seed=0).batches(ZOO_BATCH, ZOO_SEQ)
+
+    def batch():
+        toks, targs = next(it)
+        return torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device)
+
+    params, state = card, opt.init(card)
+    params, state, _ = step(params, state, *batch())  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(ZOO_STEPS):
+        b = batch()
+        if i == 0:
+            (params, state, loss), syncs, syncs_at = count_syncs(lambda: step(params, state, *b))
+        else:
+            params, state, loss = step(params, state, *b)
+        losses.append(float(loss))
+    sync()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del params, state
+    out.update(trainer=f"launch/steps.py make_train_step: {ZOO_BATCH // ZOO_MAMBA_MICROBATCH} microbatches of "
+                       f"{ZOO_MAMBA_MICROBATCH} × {ZOO_SEQ} a step, remat", microbatches=ZOO_BATCH // ZOO_MAMBA_MICROBATCH,
+               lr=lr,
+               losses=losses, tokens_per_s=ZOO_STEPS * ZOO_BATCH * ZOO_SEQ / elapsed, max_memory_allocated=peak,
+               syncs_train_step=syncs, syncs_train_step_at=syncs_at)
+
+
+def zoo_phase(smi: str, device=None) -> dict:
+    """The rest of the decoder zoo at published width, depth cut to
+    ``ZOO_LAYERS``: deepseek-v2-lite-16b (MLA, 64 routed experts top-6 and 2
+    shared) trained through ``train()`` and falcon-mamba-7b (Mamba-1,
+    d_inner 8192) through ``make_train_step`` with remat and microbatches.
+    For each: weights drawn on the host from a seed and carried to the card,
+    the first loss against the CPU's, decode ≡ forward on the card and the
+    card's decode against the CPU's, ``ZOO_STEPS`` adamw steps (``ZOO_LR``)
+    of ``ZOO_BATCH`` × ``ZOO_SEQ`` fp32 tokens (TF32 off) whose loss must fall,
+    tokens/s, peak memory and host syncs a step, decode tokens/s against a
+    deep cache and the prefill time. Then jamba-1.5-large-398b reduced:
+    decode ≡ forward and the first loss. Returns the phase's JSON."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, reduced
+
+    started = time.perf_counter()
+    device = resolve_device(device)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for fp32 matmuls")
+    out: dict = {"card": smi, "dtype": "float32", "tf32": False, "batch": ZOO_BATCH, "seq_len": ZOO_SEQ,
+                 "steps": ZOO_STEPS, "optimizer": "adamw", "archs": {}}
+    for name, want, trainer in (
+        ("deepseek-v2-lite-16b", (2048, 16, 102400, 512, 128, 64, 128, 64, 6, 2, 1408), _train_deepseek),
+        ("falcon-mamba-7b", (4096, 65024, 16, 4, 2, 256, ("mamba", "none")), _train_mamba),
+    ):
+        t_arch = time.perf_counter()
+        published = get_config(name)
+        cfg = dataclasses.replace(published, n_layers=ZOO_LAYERS)
+        if cfg.mla is not None:
+            m, e = cfg.mla, cfg.moe
+            got = (cfg.d_model, cfg.n_heads, cfg.vocab_size, m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                   m.v_head_dim, e.n_experts, e.top_k, e.n_shared, e.d_ff_expert)
+        else:
+            mb = cfg.mamba
+            got = (cfg.d_model, cfg.vocab_size, mb.d_state, mb.d_conv, mb.expand, mb.dt_rank or -(-cfg.d_model // 16),
+                   (cfg.period[0].mixer, cfg.period[0].ff))
+        check(got == want, f"{name} is not at its published width: {got}")
+        host, card, n_params, init_s = _draw(cfg, device)
+        row = {"layers": cfg.n_layers, "published_layers": published.n_layers,
+               "reduced": [f"n_layers {published.n_layers} -> {cfg.n_layers}"], "params": n_params, "init_s": init_s}
+        log(f"[zoo  ] {name} at its published width, depth cut {published.n_layers} → {cfg.n_layers} layers: "
+            f"{n_params / 1e9:.3f} B parameters, drawn on the host and carried to the card in {init_s:.1f} s")
+        _first_loss(cfg, host, card, row)
+        _decode_checks(cfg, host, card, device, row)
+        del host
+        gc.collect()
+        trainer(cfg, card, device, ZOO_LR[name], row)
+        losses = row["losses"]
+        log(f"[zoo  ] {name}: {row['trainer']}; {ZOO_STEPS} adamw steps of {ZOO_BATCH} × {ZOO_SEQ} tokens, fp32: "
+            f"losses {losses[0]:.4f} → {losses[-1]:.4f}; {row['tokens_per_s']:.0f} tokens/s; "
+            f"torch.cuda.max_memory_allocated {row['max_memory_allocated'] / 2**30:.2f} GiB; "
+            f"{row['syncs_train_step']} host syncs a step ({row['syncs_train_step_at']}) — {smi}")
+        check(len(losses) == ZOO_STEPS and all(math.isfinite(v) for v in losses), f"{name}: the losses are {losses}")
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall over {ZOO_STEPS} steps: {losses}")
+        _serve_numbers(cfg, card, device, row)
+        moe_layers = sum(s.ff == "moe" for s in cfg.period) * cfg.n_periods
+        check(row["syncs_train_step"] >= moe_layers and row["syncs_decode_step"] >= moe_layers,
+              f"{name}: counted fewer host syncs than group-size reads ({moe_layers} MoE layers): "
+              f"{row['syncs_train_step']} a train step, {row['syncs_decode_step']} a decode step")
+        del card
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["phase_s"] = time.perf_counter() - t_arch
+        out["archs"][name] = row
+
+    # jamba: attention, Mamba and MoE in one period — reduced, since one
+    # period at its published width does not fit one card
+    cfg = reduced(get_config("jamba-1.5-large-398b"))
+    check({(s.mixer, s.ff) for s in cfg.period} == {("attn", "dense"), ("mamba", "moe")},
+          f"reduced jamba's period is {cfg.period}")
+    host, card, n_params, init_s = _draw(cfg, device)
+    row = {"config": "configs.reduced", "params": n_params, "reduced": [
+        "configs.reduced: d_model 8192 -> 256, 4 heads, one attention + one Mamba/MoE layer, 4 experts of 128, "
+        "vocab 512: at its published width one 8-layer period holds 4 MoE layers of 16 x 3 x 8192 x 24576 "
+        "= 9.7 B parameters each (38.7 GB in fp32 each), so no period fits one 80 GB card"]}
+    _first_loss(cfg, host, card, row)
+    _decode_checks(cfg, host, card, device, row)
+    del host, card
+    out["jamba-1.5-large-398b"] = row
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[zoo  ] phase done in {out['phase_s']:.1f} s")
+    return out
+
+
 def mesh_spec(p_r: int, p_c: int, backend: str, delay: int = 0, precision: str = "fp32"):
     """The mesh phase's spec: full-size rcv1, the main path's s, b, τ, η and
     rounds on a p_r × p_c mesh, a loss sample every 4 rounds."""
@@ -1609,6 +1958,12 @@ def main() -> None:
     if "--mesh-nccl" in sys.argv[1:]:
         mesh_nccl_main(smi)
         return
+    if "--zoo" in sys.argv[1:]:
+        zoo = zoo_phase(smi)
+        print(smi, flush=True)
+        print(json.dumps({"zoo": zoo}), flush=True)
+        device_line()
+        return
 
     from repro_torch.core import engine
     from repro_torch.core.comm import time_phase
@@ -1643,8 +1998,9 @@ def main() -> None:
 
     # ---- the language-model trainer: qwen2.5-3b at its published width ---
     # (first, on an empty card: its ~28 GiB peak does not share the card
-    # with what the solver's phases keep)
+    # with what the solver's phases keep); then the rest of the zoo
     lm = lm_phase(smi)
+    zoo = zoo_phase(smi)
 
     t0 = time.perf_counter()
     ds = make_dataset(DATASET, seed=0)
@@ -2085,6 +2441,7 @@ def main() -> None:
     log(f"[mem  ] device memory held after the solver's phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"zoo": zoo}), flush=True)
 
     # ---- phase 6: the kernels line, the device lines ---------------------
     # each (kernel, mode) with its launches on the path that runs it: the

@@ -21,8 +21,9 @@ versions. ``backend="shard_map"`` runs on the 2D process mesh: every rank
 of an initialized default process group of p_r·p_c ranks makes the same
 call. A spec with a stream (``StreamSpec``) trains through
 ``Session.step_stream`` on micro-batches from ``repro_torch.serve``. A
-spec with ``bk=None`` raises ``NotImplementedError`` naming the ROADMAP.md
-item it waits for.
+spec with ``bk=None`` asks the Gram autotuner (``kernels/tune.py``) for
+its device's geometry: on the card the kernel's (tile, ks) by device
+time, on the CPU the plain walk's (bk, bm), tuned once and cached.
 """
 
 from repro_torch.api.spec import (

@@ -28,7 +28,7 @@ kernel's dynamic shared memory a block, ``SMEM_LIMIT``.
 The model half of the reference's module (HLO collective parsing, the
 dry-run roofline terms, model FLOPs, depth extrapolation) reads XLA's
 compiled text and waits for the language-model dry run (ROADMAP.md Queue 1
-item 13).
+item 13d).
 """
 
 from __future__ import annotations

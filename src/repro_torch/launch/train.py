@@ -4,7 +4,7 @@ The reference's flags plus ``--device`` (default: the CUDA device; pass
 ``--device cpu`` to run on the CPU). Without ``--full`` the config is its
 reduced smoke variant (``configs.reduced``). ``--mesh`` (the reference's
 multi-pod hybrid-2D schedule) is refused: it is not in the port yet
-(ROADMAP.md Queue 1 item 13).
+(ROADMAP.md Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh (the hybrid-2D pod schedule) is not in the port yet (ROADMAP.md Queue 1 item 13)")
+        ap.error("--mesh (the hybrid-2D pod schedule) is not in the port yet (ROADMAP.md Queue 1 item 13c)")
 
     cfg = get_config(args.arch)
     if not args.full:

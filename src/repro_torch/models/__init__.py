@@ -1,14 +1,17 @@
-"""Model zoo: the config-driven decoder, dense-attention family.
+"""Model zoo: the config-driven decoder for every registry config —
+attention (GQA/MQA, sliding window), MLA, MoE and Mamba-1 layers — with
+its training forward, LM loss and single-token decode (``init_cache``,
+``decode_step``).
 
-Not in the port yet (ROADMAP.md Queue 1 item 13): MLA, MoE (and
-``moe_ep``), Mamba, the decode forms (``init_cache``, ``decode_step``)
-and the mesh partition specs (``models/sharding.py``); building such a
-layer raises ``NotImplementedError``.
+Not in the port yet: the mesh partition specs (``models/sharding.py``)
+and the expert-parallel MoE (``models/moe_ep.py``), which only a model
+mesh reaches (ROADMAP.md Queue 1 item 13c); ``param_pspecs`` raises
+``NotImplementedError``.
 """
 
 from repro_torch.models.config import ArchConfig, LayerSpec, MLAConfig, MambaConfig, MoEConfig
 from repro_torch.models.init import init_params, param_pspecs, params_from_numpy, params_to_numpy
-from repro_torch.models.transformer import forward, lm_loss
+from repro_torch.models.transformer import decode_step, forward, init_cache, lm_loss
 
 __all__ = [
     "ArchConfig",
@@ -22,4 +25,6 @@ __all__ = [
     "params_to_numpy",
     "forward",
     "lm_loss",
+    "init_cache",
+    "decode_step",
 ]

@@ -1,18 +1,24 @@
-"""Layer blocks of the decoder zoo's dense-attention family: RMS norm,
-RoPE, causal attention (GQA/MQA, sliding window), the gated MLP.
+"""Layer blocks of the decoder zoo: RMS norm, RoPE, causal attention
+(GQA/MQA, sliding window), multi-head latent attention (MLA), the gated
+MLP, token-choice MoE and Mamba-1.
 
-Plain PyTorch ops (einsum, softmax) written as the reference's
-``repro.models.blocks`` writes them, so the two agree to float32 rounding:
-the same einsum contractions, the mask fill ``finfo(float32).min`` on the
-flat path and ``-1e30`` on the query-chunked one, softmax in float32,
-half-split (not interleaved) RoPE, the tanh-approximated GELU
-(``jax.nn.gelu``'s default). No fused attention call: its masking and
-accumulation differ from ``_sdpa_flat``'s. No kernel of this slice's path
-lies here.
+Each mixer has a full-sequence form (training / prefill) and a
+single-token decode form threading an explicit cache or state (what
+``serve_step`` runs); ``init_attn_cache``, ``init_mla_cache`` and
+``init_mamba_state`` make them.
 
-Not in the port yet (ROADMAP.md Queue 1 item 13): the single-token decode
-forms and their caches, the grouped no-repeat ``_sdpa`` they use, MLA,
-MoE and Mamba.
+Plain PyTorch ops (einsum, softmax, a loop of matmuls) written as the
+reference's ``repro.models.blocks`` writes them, so the two agree to
+float32 rounding: the same einsum contractions, the mask fill
+``finfo(float32).min`` on the flat paths and ``-1e30`` on the
+query-chunked one, softmax in float32, half-split (not interleaved) RoPE,
+the tanh-approximated GELU (``jax.nn.gelu``'s default), softplus as
+``logaddexp(x, 0)`` (``jax.nn.softplus``; ``F.softplus`` returns x above
+its threshold). Where the reference mixes a bfloat16 tensor with a
+float32 leaf (``router``, ``A_log``, the SSM state) and ``jnp`` promotes,
+the port casts to the promoted type at the same point. No fused attention
+call: its masking and accumulation differ from the reference's. No TPU
+kernel lies on this path (the reference writes it in ``jnp``/``lax``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import resolve_device
 from repro_torch.models.config import ArchConfig, LayerSpec
 
 
@@ -34,7 +41,7 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 def rope_frequencies(head_dim: int, theta: float, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for ``positions`` (any shape) × head_dim/2."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
+    inv = 1.0 / torch.pow(theta, exponent)  # a Python base: no host-to-device copy (a sync on a card)
     ang = positions[..., None].to(torch.float32) * inv  # (..., hd/2)
     return torch.cos(ang), torch.sin(ang)
 
@@ -49,6 +56,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ----------------------------------------------------------- attention
+
+
+def _sdpa(q, k, v, mask, scale) -> torch.Tensor:
+    """Grouped-query attention without repeating the KV heads (the decode
+    path): q (B, S, H, D); k/v (B, L, KV, D) with H = KV·G."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    q5 = q.reshape(B, S, KV, H // KV, D)
+    logits = torch.einsum("bskgd,blkd->bkgsl", q5, k) * scale
+    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgsl,blkd->bskgd", probs, v)
+    return out.reshape(B, S, H, D)
 
 
 def _repeat_kv_flat(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -126,7 +146,129 @@ def attn_train(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Te
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
 
 
-# ------------------------------------------------------------------ MLP
+def init_attn_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int, dtype, device=None):
+    """Zero K/V of (batch, L, KV, D): L = max_len, or the window for a
+    sliding-window layer (a ring)."""
+    L = min(cfg.sliding_window, max_len) if spec.attn == "swa" and cfg.sliding_window else max_len
+    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    device = resolve_device(device)
+    return {
+        "k": torch.zeros((batch, L, KV, D), dtype=dtype, device=device),
+        "v": torch.zeros((batch, L, KV, D), dtype=dtype, device=device),
+    }
+
+
+def attn_decode(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, cache, pos):
+    """One-token decode. x: (B, 1, d); pos: the current position, a 0-d
+    integer tensor on x's device (never read on the host). The new K/V go
+    to slot ``pos % L``: a ring for a sliding window, and past ``max_len``
+    for full attention too, where every slot is then attended (the
+    reference's semantics)."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    L = cache["k"].shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, D))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].reshape(cfg.d_model, KV, D))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].reshape(cfg.d_model, KV, D))
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, D)
+        k = k + p["bk"].reshape(KV, D)
+        v = v + p["bv"].reshape(KV, D)
+    cos, sin = rope_frequencies(D, cfg.rope_theta, pos.reshape(1))
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    slot = torch.remainder(pos, L).reshape(1).long()
+    ck = cache["k"].index_copy(1, slot, k)
+    cv = cache["v"].index_copy(1, slot, v)
+    valid = (torch.arange(L, device=x.device) <= slot) | (pos >= L)
+    out = _sdpa(q, ck, cv, valid[None, None, None, None, :], D**-0.5)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
+    return y, {"k": ck, "v": cv}
+
+
+# ------------------------------------------------- MLA (DeepSeek-V2)
+
+
+def _mla_qkv(p, cfg: ArchConfig, x, positions):
+    m = cfg.mla
+    H = cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, qd))
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    cos, sin = rope_frequencies(m.qk_rope_head_dim, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])  # (B, S, lora)
+    k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"])  # one rope key shared by the heads
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, mask):
+    """Latent-space attention: the queries are absorbed into the KV-LoRA
+    basis, so the cache stays (lora + rope) wide. The scale is applied
+    inside the mask's ``where``, as the reference does."""
+    m = cfg.mla
+    H = cfg.n_heads
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # q̃ = q_nope · W_UKᵀ
+    logits = torch.einsum("bshr,blr->bhsl", q_lat, ckv)
+    logits = logits + torch.einsum("bshk,blk->bhsl", q_rope, k_rope)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    logits = torch.where(mask, logits * scale, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q_nope.dtype)
+    ctx = torch.einsum("bhsl,blr->bshr", probs, ckv)  # the context in the lora space
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhk->bshk", ctx, w_uv)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, m.v_head_dim, cfg.d_model))
+
+
+def _mla_attend_chunked(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, q_chunk: int = ATTN_Q_CHUNK):
+    """Query-chunked MLA: scores of (B, H, q_chunk, S) at a time."""
+    S = q_nope.shape[1]
+    kpos = torch.arange(S, device=q_nope.device)
+    outs = []
+    for ci in range(S // q_chunk):
+        rows = slice(ci * q_chunk, (ci + 1) * q_chunk)
+        qpos = ci * q_chunk + torch.arange(q_chunk, device=q_nope.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None, None]
+        outs.append(_mla_attend(p, cfg, q_nope[:, rows], q_rope[:, rows], ckv, k_rope, mask))
+    return torch.cat(outs, dim=1)
+
+
+def mla_train(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, pos)
+    if S > CHUNKED_ATTN_THRESHOLD and S % ATTN_Q_CHUNK == 0:
+        return _mla_attend_chunked(p, cfg, q_nope, q_rope, ckv, k_rope, q_chunk=ATTN_Q_CHUNK)
+    mask = (pos[:, None] >= pos[None, :])[None, None]
+    return _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device=None):
+    m = cfg.mla
+    device = resolve_device(device)
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_decode(p, cfg: ArchConfig, spec: LayerSpec, x, cache, pos):
+    """One-token MLA decode against the latent cache. The write slot is
+    ``min(pos, L - 1)``: the reference's ``dynamic_update_slice`` clamps a
+    start past the end, so past ``max_len`` each token overwrites the last
+    slot and attends to every slot."""
+    q_nope, q_rope, ckv_new, kr_new = _mla_qkv(p, cfg, x, pos.reshape(1))
+    L = cache["ckv"].shape[1]
+    slot = torch.clamp(pos, max=L - 1).reshape(1).long()
+    ckv = cache["ckv"].index_copy(1, slot, ckv_new)
+    kr = cache["kr"].index_copy(1, slot, kr_new)
+    valid = torch.arange(L, device=x.device) <= pos
+    y = _mla_attend(p, cfg, q_nope, q_rope, ckv, kr, valid[None, None, None, :])
+    return y, {"ckv": ckv, "kr": kr}
+
+
+# -------------------------------------------------------------- MLP/MoE
 
 
 def _act(name: str, x):
@@ -137,3 +279,164 @@ def mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU)."""
     h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands cast to their promoted type: ``jnp`` promotes a
+    bfloat16 operand against a float32 one, ``torch.matmul``/``einsum``
+    refuse mixed types."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]
+
+
+def moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Token-choice top-k MoE, the reference's local path: a float32
+    softmax router, ``top_k`` renormalised (the sum clipped at 1e-9), the
+    (token, k) pairs stably sorted by expert, one matmul per non-empty
+    expert group (the reference's ``ragged_dot``), the inverse permutation,
+    the weighted sum over k, then the shared experts.
+
+    The group sizes are read on the host: one device sync per call. The
+    reference's expert-parallel branch (``models/moe_ep.py``, taken under a
+    mesh whose "model" axis is larger than 1) is not reachable here: the
+    port has no model mesh yet (ROADMAP.md Queue 1 item 13c).
+    """
+    e = cfg.moe
+    B, S, d = x.shape
+    t = x.reshape(B * S, d)
+    logits = torch.matmul(*_promoted(t, p["router"]))  # (T, E); the router is float32
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_p, top_i = torch.topk(probs, e.top_k, dim=-1)  # (T, k)
+    top_p = (top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)).to(x.dtype)
+
+    flat_expert = top_i.reshape(-1)  # (T·k,)
+    order = torch.argsort(flat_expert, stable=True)
+    inv = torch.argsort(order, stable=True)
+    t_rep = t[:, None, :].expand(-1, e.top_k, -1).reshape(-1, d)[order]  # k copies a token, by expert
+    # group sizes over the allocated (padded) experts; .tolist() is the one
+    # host sync (bincount and an int repeat_interleave would add their own)
+    sizes = torch.zeros(p["w_gate_e"].shape[0], dtype=torch.int64, device=x.device)
+    sizes = sizes.scatter_add_(0, flat_expert, torch.ones_like(flat_expert)).tolist()
+    # one view an expert: the backward stacks their gradients once, where
+    # indexing [ex] would materialize a full-size zero gradient per expert
+    w_gate, w_up, w_down = (p[k].unbind(0) for k in ("w_gate_e", "w_up_e", "w_down_e"))
+    ys = []
+    for ex, rows in enumerate(torch.split(t_rep, sizes)):
+        if sizes[ex]:
+            h = _act(cfg.mlp_act, rows @ w_gate[ex]) * (rows @ w_up[ex])
+            ys.append(h @ w_down[ex])
+    y = torch.cat(ys)[inv].reshape(B * S, e.top_k, d)
+    y = torch.einsum("tkd,tk->td", y, top_p.to(y.dtype))
+
+    if e.n_shared:
+        sh = _act(cfg.mlp_act, t @ p["w_gate_sh"]) * (t @ p["w_up_sh"])
+        y = y + sh @ p["w_down_sh"]
+    return y.reshape(B, S, d)
+
+
+# ------------------------------------------------------------- Mamba-1
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(−|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _mamba_dims(cfg: ArchConfig):
+    mb = cfg.mamba
+    d_in = mb.expand * cfg.d_model
+    dt_rank = mb.dt_rank or -(-cfg.d_model // 16)
+    return mb, d_in, dt_rank
+
+
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t·h_{t−1} + b_t along dim 1 (from h = 0)
+    in log₂(T) doubling steps (Hillis–Steele): (A_t, B_t) with
+    h_t = A_t·h_{−1} + B_t."""
+    T = a.shape[1]
+    off = 1
+    while off < T:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def _ssm_scan_chunked(dt, xi, Bc, Cc, A, h0, chunk: int):
+    """Selective scan with the (B, chunk, d_in, N) discretized tensors made
+    one chunk at a time: sequential over the S/chunk chunks, a doubling
+    scan inside each. The recurrence runs in float32.
+    Returns (y: (B, S, d_in) float32, h_last: (B, d_in, N) float32)."""
+    S = dt.shape[1]
+    h = h0
+    ys = []
+    for c in range(S // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        dt_c, xi_c, b_c, c_c = dt[:, rows], xi[:, rows], Bc[:, rows], Cc[:, rows]
+        a_bar = torch.exp(dt_c[..., None].to(torch.float32) * A)  # (B, chunk, d_in, N)
+        bx = ((dt_c * xi_c)[..., None] * b_c[:, :, None, :]).to(torch.float32)
+        a_acc, b_acc = _doubling_scan(a_bar, bx)
+        hs = a_acc * h[:, None] + b_acc  # the states inside the chunk
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, c_c.to(torch.float32)))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Full-sequence Mamba-1 (selective SSM) forward."""
+    mb, d_in, dt_rank = _mamba_dims(cfg)
+    B, S, _ = x.shape
+    xz = x @ p["in_proj"]  # (B, S, 2·d_in)
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    # causal depthwise convolution over time
+    pad = F.pad(xi, (0, 0, mb.d_conv - 1, 0))
+    xi = sum(pad[:, i : i + S, :] * p["conv_w"][:, i] for i in range(mb.d_conv)) + p["conv_b"]
+    xi = F.silu(xi)
+
+    proj = xi @ p["x_proj"]  # (B, S, dt_rank + 2N)
+    dt, Bc, Cc = torch.split(proj, [dt_rank, mb.d_state, mb.d_state], dim=-1)
+    dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])  # (B, S, d_in)
+    A = -torch.exp(p["A_log"].to(torch.float32))  # (d_in, N)
+
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S  # a single chunk, as the reference falls back
+    h0 = torch.zeros((B, d_in, mb.d_state), dtype=torch.float32, device=x.device)
+    y, _ = _ssm_scan_chunked(dt, xi, Bc, Cc, A, h0, chunk)
+    y = y + (xi * p["D"]).to(torch.float32)
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    return y @ p["out_proj"]
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device=None):
+    """The last d_conv − 1 inputs of the convolution (``dtype``) and the
+    SSM state (float32)."""
+    mb, d_in, _ = _mamba_dims(cfg)
+    device = resolve_device(device)
+    return {
+        "conv": torch.zeros((batch, mb.d_conv - 1, d_in), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, d_in, mb.d_state), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(p, cfg: ArchConfig, x, state, pos):
+    """Single-token recurrence: O(1) state whatever the position."""
+    del pos
+    mb, d_in, dt_rank = _mamba_dims(cfg)
+    xz = x[:, 0, :] @ p["in_proj"]
+    xi, z = torch.chunk(xz, 2, dim=-1)  # (B, d_in)
+    window = torch.cat([state["conv"], xi[:, None, :]], dim=1)  # (B, d_conv, d_in)
+    xi = torch.einsum("bcd,dc->bd", window, p["conv_w"]) + p["conv_b"]
+    xi = F.silu(xi)
+    proj = xi @ p["x_proj"]
+    dt, Bc, Cc = torch.split(proj, [dt_rank, mb.d_state, mb.d_state], dim=-1)
+    dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    a_bar = torch.exp(dt[..., None] * A)  # (B, d_in, N), float32
+    h = a_bar * state["ssm"] + (dt * xi)[..., None] * Bc[:, None, :]
+    y = torch.einsum("bdn,bn->bd", *_promoted(h, Cc)) + xi * p["D"]
+    y = y * F.silu(z)
+    y = (y.to(x.dtype) @ p["out_proj"])[:, None, :]
+    return y, {"conv": window[:, 1:, :], "ssm": h}

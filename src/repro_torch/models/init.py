@@ -14,11 +14,13 @@ biases. The parameters of the two packages are held together through
 package's tensors) and ``params_to_numpy`` (the inverse, what a pytree
 checkpoint stores).
 
-Built here: attention layers (full and sliding-window, GQA/MQA,
-``qkv_bias``) with a dense FF, the embedding, ``lm_head`` and the
-``proj`` prefix projection. MLA, MoE and Mamba layers raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 13), and so do the mesh
-partition specs of the reference's ``param_pspecs``.
+Built here: every layer of the registry — attention (full and
+sliding-window, GQA/MQA, ``qkv_bias``), multi-head latent attention (MLA),
+Mamba-1, and the dense and MoE feed-forwards — the embedding, ``lm_head``
+and the ``proj`` prefix projection. ``router`` and ``A_log`` stay float32
+whatever ``dtype`` is, as in the reference. The mesh partition specs of
+the reference's ``param_pspecs`` raise ``NotImplementedError``
+(``models/sharding.py``, ROADMAP.md Queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -28,21 +30,16 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.models.blocks import _mamba_dims
 from repro_torch.models.config import ArchConfig, LayerSpec
 
-_WAITS = "is not in the port yet (ROADMAP.md Queue 1 item 13)"
 
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg``'s
-    period is an attention layer (full or swa) with a dense FF."""
-    for spec in cfg.period:
-        if spec.mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: the {spec.mixer} mixer {_WAITS}")
-        if spec.attn == "mla":
-            raise NotImplementedError(f"{cfg.name}: multi-head latent attention (MLA) {_WAITS}")
-        if spec.ff == "moe":
-            raise NotImplementedError(f"{cfg.name}: the MoE feed-forward {_WAITS}")
+def padded_experts(n_experts: int) -> int:
+    """Experts allocated, padded to a multiple of 16 (the reference's
+    production model axis) when there are at least 16 — reduced smoke
+    configs stay unpadded. The router stays (d, n_experts), so a pad is
+    never routed to."""
+    return -(-n_experts // 16) * 16 if n_experts >= 16 else n_experts
 
 
 def _norm(gen, shape, scale, dtype):
@@ -50,20 +47,48 @@ def _norm(gen, shape, scale, dtype):
 
 
 def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
+    """One layer's tensors, drawn from ``gen`` in the reference's key
+    order: the mixer's matrices, then the feed-forward's."""
     d = cfg.d_model
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p: dict = {"ln1": torch.ones((d,), dtype=dtype)}
-    p |= {
-        "wq": _norm(gen, (d, H * D), d**-0.5, dtype),
-        "wk": _norm(gen, (d, KV * D), d**-0.5, dtype),
-        "wv": _norm(gen, (d, KV * D), d**-0.5, dtype),
-        "wo": _norm(gen, (H * D, d), (H * D) ** -0.5, dtype),
-    }
-    if cfg.qkv_bias:
+    if spec.mixer == "attn":
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        if spec.attn == "mla":
+            m = cfg.mla
+            qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+            p |= {
+                "wq": _norm(gen, (d, H * qd), d**-0.5, dtype),
+                "w_dkv": _norm(gen, (d, m.kv_lora_rank), d**-0.5, dtype),
+                "w_kr": _norm(gen, (d, m.qk_rope_head_dim), d**-0.5, dtype),
+                "w_uk": _norm(gen, (m.kv_lora_rank, H * m.qk_nope_head_dim), m.kv_lora_rank**-0.5, dtype),
+                "w_uv": _norm(gen, (m.kv_lora_rank, H * m.v_head_dim), m.kv_lora_rank**-0.5, dtype),
+                "wo": _norm(gen, (H * m.v_head_dim, d), (H * m.v_head_dim) ** -0.5, dtype),
+            }
+        else:
+            p |= {
+                "wq": _norm(gen, (d, H * D), d**-0.5, dtype),
+                "wk": _norm(gen, (d, KV * D), d**-0.5, dtype),
+                "wv": _norm(gen, (d, KV * D), d**-0.5, dtype),
+                "wo": _norm(gen, (H * D, d), (H * D) ** -0.5, dtype),
+            }
+            if cfg.qkv_bias:
+                p |= {
+                    "bq": torch.zeros((H * D,), dtype=dtype),
+                    "bk": torch.zeros((KV * D,), dtype=dtype),
+                    "bv": torch.zeros((KV * D,), dtype=dtype),
+                }
+    else:  # mamba
+        mb, d_in, dt_rank = _mamba_dims(cfg)
         p |= {
-            "bq": torch.zeros((H * D,), dtype=dtype),
-            "bk": torch.zeros((KV * D,), dtype=dtype),
-            "bv": torch.zeros((KV * D,), dtype=dtype),
+            "in_proj": _norm(gen, (d, 2 * d_in), d**-0.5, dtype),
+            "conv_w": _norm(gen, (d_in, mb.d_conv), mb.d_conv**-0.5, dtype),
+            "conv_b": torch.zeros((d_in,), dtype=dtype),
+            "x_proj": _norm(gen, (d_in, dt_rank + 2 * mb.d_state), d_in**-0.5, dtype),
+            "dt_proj": _norm(gen, (dt_rank, d_in), dt_rank**-0.5, dtype),
+            "dt_bias": torch.full((d_in,), -4.6, dtype=dtype),  # softplus ≈ 0.01
+            "A_log": torch.log(torch.arange(1, mb.d_state + 1, dtype=torch.float32)).repeat(d_in, 1),
+            "D": torch.ones((d_in,), dtype=dtype),
+            "out_proj": _norm(gen, (d_in, d), d_in**-0.5, dtype),
         }
     if spec.ff != "none":
         p["ln2"] = torch.ones((d,), dtype=dtype)
@@ -73,6 +98,22 @@ def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
             "w_up": _norm(gen, (d, cfg.d_ff), d**-0.5, dtype),
             "w_down": _norm(gen, (cfg.d_ff, d), cfg.d_ff**-0.5, dtype),
         }
+    elif spec.ff == "moe":
+        e = cfg.moe
+        e_pad = padded_experts(e.n_experts)
+        p |= {
+            "router": _norm(gen, (d, e.n_experts), d**-0.5, torch.float32),
+            "w_gate_e": _norm(gen, (e_pad, d, e.d_ff_expert), d**-0.5, dtype),
+            "w_up_e": _norm(gen, (e_pad, d, e.d_ff_expert), d**-0.5, dtype),
+            "w_down_e": _norm(gen, (e_pad, e.d_ff_expert, d), e.d_ff_expert**-0.5, dtype),
+        }
+        if e.n_shared:
+            ff_sh = e.n_shared * e.d_ff_expert
+            p |= {
+                "w_gate_sh": _norm(gen, (d, ff_sh), d**-0.5, dtype),
+                "w_up_sh": _norm(gen, (d, ff_sh), d**-0.5, dtype),
+                "w_down_sh": _norm(gen, (ff_sh, d), ff_sh**-0.5, dtype),
+            }
     return p
 
 
@@ -84,7 +125,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, dtype
     position, then period, then the layer's tensors; then the embedding,
     ``lm_head`` and ``proj`` — so one seed gives the same weights on every
     device."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
     layers = []
@@ -105,7 +145,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, dtype
 
 def param_pspecs(*args, **kwargs):
     """The reference's mesh partition specs: not in the port yet."""
-    raise NotImplementedError(f"param_pspecs (models/sharding.py) {_WAITS}")
+    raise NotImplementedError("param_pspecs (models/sharding.py) is not in the port yet "
+                              "(ROADMAP.md Queue 1 item 13c)")
 
 
 # ---- the carry between the packages ----

@@ -1,15 +1,19 @@
-"""Decoder stack: the period loop's forward and the LM loss.
+"""Decoder stack: the period loop's forward, the LM loss, and the
+KV/SSM-cache decode.
 
   forward(cfg, params, tokens, prefix_emb)   → logits (train/prefill)
   lm_loss(cfg, params, tokens, targets, …)   → mean next-token NLL
+  init_cache(cfg, batch, max_len, dtype)     → the decode cache
+  decode_step(cfg, params, cache, tokens)    → (logits, cache)
 
 The reference scans a period body over the ``n_periods`` stacked layer
-parameters; here a Python loop takes period r's slice of each stacked
-tensor, in the same order, with the same arithmetic. ``remat``
-recomputes each period's activations in the backward pass
+parameters (and caches); here a Python loop takes period r's slice of
+each stacked tensor, in the same order, with the same arithmetic.
+``remat`` recomputes each period's activations in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-does. The decode cache and ``decode_step`` are not in the port yet
-(ROADMAP.md Queue 1 item 13).
+does. The cache is the reference's tree, ``{"layers": tuple, "pos": 0-d
+int32}``, so a reference cache carried through ``params_from_numpy``
+decodes here; ``pos`` stays on the device.
 """
 
 from __future__ import annotations
@@ -17,18 +21,29 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.init import check_supported
+
+
+def _mix_train(p, cfg: ArchConfig, spec, h):
+    if spec.mixer == "mamba":
+        return blocks.mamba_train(p, cfg, h)
+    if spec.attn == "mla":
+        return blocks.mla_train(p, cfg, spec, h)
+    return blocks.attn_train(p, cfg, spec, h)
+
+
+def _feed_forward(p, cfg: ArchConfig, spec, x):
+    if spec.ff == "none":
+        return x
+    h = blocks.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + (blocks.moe(p, cfg, h) if spec.ff == "moe" else blocks.mlp(p, cfg, h))
 
 
 def _apply_layer_train(p, cfg: ArchConfig, spec, x):
-    h = blocks.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + blocks.attn_train(p, cfg, spec, h)
-    if spec.ff != "none":
-        h = blocks.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + blocks.mlp(p, cfg, h)
-    return x
+    x = x + _mix_train(p, cfg, spec, blocks.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return _feed_forward(p, cfg, spec, x)
 
 
 def forward(
@@ -44,7 +59,6 @@ def forward(
     ``remat``: activation-checkpoint at period granularity (training).
     ``last_only``: head applied to the final position only (prefill —
     no (B, S, V) logits)."""
-    check_supported(cfg)
     x = params["embed"][tokens.long()]
     if prefix_emb is not None:
         x = torch.cat([prefix_emb @ params["proj"], x], dim=1)
@@ -78,3 +92,51 @@ def lm_loss(
     if mask is None:
         return torch.mean(nll)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+# ------------------------------------------------------------- decode
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Per-period-position caches, each stacked over the periods, and the
+    position (a 0-d int32 tensor) on ``device`` (None: the CUDA device or
+    an error). Attention and MLA caches are ``dtype``; a Mamba layer's SSM
+    state is float32."""
+    device = resolve_device(device)
+    per_pos = []
+    for spec in cfg.period:
+        if spec.mixer == "mamba":
+            one = blocks.init_mamba_state(cfg, batch, dtype, device=device)
+        elif spec.attn == "mla":
+            one = blocks.init_mla_cache(cfg, batch, max_len, dtype, device=device)
+        else:
+            one = blocks.init_attn_cache(cfg, spec, batch, max_len, dtype, device=device)
+        per_pos.append({k: v.expand((cfg.n_periods,) + v.shape).clone() for k, v in one.items()})
+    return {"layers": tuple(per_pos), "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _mix_decode(p, cfg: ArchConfig, spec, h, c, pos):
+    if spec.mixer == "mamba":
+        return blocks.mamba_decode(p, cfg, h, c, pos)
+    if spec.attn == "mla":
+        return blocks.mla_decode(p, cfg, spec, h, c, pos)
+    return blocks.attn_decode(p, cfg, spec, h, c, pos)
+
+
+def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One token per sequence: tokens (B, 1) → logits (B, 1, V) and the
+    next cache (new tensors; ``cache`` is not changed)."""
+    pos = cache["pos"]
+    x = params["embed"][tokens.long()]
+    new = [[] for _ in cfg.period]  # per period position, the periods' caches
+    for r in range(cfg.n_periods):
+        for i, (spec, stacked_p, stacked_c) in enumerate(zip(cfg.period, params["layers"], cache["layers"])):
+            p = {k: v[r] for k, v in stacked_p.items()}
+            h, c = _mix_decode(p, cfg, spec, blocks.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                               {k: v[r] for k, v in stacked_c.items()}, pos)
+            x = _feed_forward(p, cfg, spec, x + h)
+            new[i].append(c)
+    layers = tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]} for cs in new)
+    x = blocks.rmsnorm(params["norm_f"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head, {"layers": layers, "pos": pos + 1}

@@ -70,8 +70,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: f
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32), state["mu"], grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(torch.float32)), state["nu"], grads)
         tf = t.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=tf.device), tf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=tf.device), tf)
+        bc1 = 1 - torch.pow(b1, tf)  # a Python base: no host-to-device copy (a sync on a card)
+        bc2 = 1 - torch.pow(b2, tf)
 
         def step(p, m, v):
             upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)

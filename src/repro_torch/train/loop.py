@@ -4,8 +4,9 @@ Wires: config → params → the train step (loss, gradients, the
 optimizer's update) → the Markov token stream → losses → checkpoints, on
 one device — the reference's ``repro.train.loop.train`` without a mesh.
 The multi-pod hybrid-2D path (pod-local steps, a τ-sync; the reference's
-``mesh=`` branch with ``optim/hybrid2d.py`` and ``launch/steps.py``) is
-not in the port yet (ROADMAP.md Queue 1 item 13).
+``mesh=`` branch with ``optim/hybrid2d.py``) is not in the port yet
+(ROADMAP.md Queue 1 item 13c). ``launch/steps.py`` holds the microbatched
+train step with remat, and the prefill and serve steps.
 
 The step is plain autograd over the parameter tree: ``lm_loss`` is
 differentiated with ``torch.autograd.grad`` and the optimizer's
@@ -93,18 +94,20 @@ def train(
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...) runs the hybrid-2D pod schedule (optim/hybrid2d.py, "
-            "launch/steps.py), which is not in the port yet (ROADMAP.md Queue 1 item 13)"
+            "models/sharding.py), which is not in the port yet (ROADMAP.md Queue 1 item 13c)"
         )
     device = resolve_device(device)
     opt = opt or adamw(3e-4)
     if params is None:
         params = init_params(cfg, dtype=dtype, device=device, seed=seed)
-    opt_state = opt.init(params)
     if schedule is not None and schedule.p_r != 1:
         raise ValueError(f"schedule.p_r={schedule.p_r} but the run has 1 pod")
 
     step_fn = make_train_step(cfg, opt)
-    state = (params, opt_state)
+    # the state alone holds the parameters and moments: a local name left on
+    # the first ones would keep them on the device for the whole run
+    state = (params, opt.init(params))
+    del params
     stream = MarkovTextStream(cfg.vocab_size, seed=seed)
     it = stream.batches(batch, seq_len)
 

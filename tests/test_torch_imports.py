@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.configs.falcon_mamba_7b", "repro_torch.optim", "repro_torch.optim.sgd",
     "repro_torch.train.data", "repro_torch.train.loop", "repro_torch.launch.train",
+    "repro_torch.launch.steps",
 ]
 
 _IMPORT_ALL = """
@@ -124,7 +125,7 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import tune
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import init_params, params_from_numpy
+    from repro_torch.models import init_cache, init_params, params_from_numpy
     from repro_torch.train import train
 
     a = make_skewed_csr(16, 20, 3, 0.0, seed=0)
@@ -150,6 +151,8 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
         lambda: serve_cli.main(["--spec", str(ROOT / "examples/specs/serve_drift.json"), "--rounds", "1"]),
         lambda: sweep_cli.main(["--spec", str(ROOT / "examples/specs/rcv1_hybrid.json")]),
         lambda: init_params(reduced(get_config("qwen2.5-3b"))),
+        lambda: init_params(reduced(get_config("jamba-1.5-large-398b"))),
+        lambda: init_cache(reduced(get_config("deepseek-v2-lite-16b")), 1, 8),
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
         lambda: train(reduced(get_config("qwen2.5-3b")), steps=1),
         lambda: train_cli.main(["--arch", "qwen2.5-3b", "--steps", "1"]),

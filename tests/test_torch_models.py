@@ -1,5 +1,6 @@
-"""The port's decoder zoo (dense-attention family) against the
-reference's: ``repro_torch.models`` / ``repro_torch.configs`` and
+"""The port's decoder zoo (the dense-attention family; MLA, MoE and Mamba
+are in ``tests/test_torch_zoo.py``, decode in ``test_torch_decode.py``)
+against the reference's: ``repro_torch.models`` / ``repro_torch.configs`` and
 ``repro.models`` / ``repro.configs`` on the same weights and tokens.
 
 The reference draws its weights from ``jax.random``; they cross into the
@@ -38,7 +39,6 @@ from repro_torch.models import (
 LOGIT_RTOL, LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-6, 2e-5
 DENSE = ["qwen2.5-3b", "gemma-2b", "granite-34b", "mistral-nemo-12b", "musicgen-medium",
          "llava-next-mistral-7b", "swa"]
-NOT_YET = ["deepseek-v2-lite-16b", "granite-moe-3b-a800m", "jamba-1.5-large-398b", "falcon-mamba-7b"]
 
 
 def _cfgs(name):
@@ -195,15 +195,6 @@ def test_rope_gelu_and_norm_match_the_reference(name):
     assert _rel(jbl._act(jcfg.mlp_act, jnp.asarray(h)), tbl._act(tcfg.mlp_act, torch.from_numpy(h)).numpy()) <= 1e-6
     assert _rel(jbl.rmsnorm(jnp.asarray(g), jnp.asarray(h), 1e-6),
                 tbl.rmsnorm(torch.from_numpy(g), torch.from_numpy(h), 1e-6).numpy()) <= 1e-6
-
-
-@pytest.mark.parametrize("name", NOT_YET)
-def test_mla_moe_and_mamba_raise_not_implemented(name):
-    cfg = TC.reduced(TC.get_config(name))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tinit(cfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tforward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
 
 
 def test_init_is_seeded_and_has_the_references_tree():
