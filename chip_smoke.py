@@ -44,11 +44,23 @@ their published widths cut to 2 layers — the first loss and 64 decode steps
 against the CPU's, decode ≡ forward, 10 adamw steps whose loss must fall,
 tokens/s, peak memory, host syncs a train and a decode step, decode tokens/s
 against a 512-deep cache, prefill time — and jamba reduced (decode ≡ forward,
-the first loss; one ``{"zoo": ...}`` JSON line); and prints
+the first loss; one ``{"zoo": ...}`` JSON line), then the model mesh
+(``model_mesh_phase``): four spawned processes sharing the card in a gloo
+group with CUDA tensors, published widths cut to 2 layers — qwen2.5-3b
+through ``train(mesh=...)`` on a (2, 1, 2) pod/data/model mesh against a
+FedAvg oracle computed on the card first (losses, final parameters, the pods
+apart before each sync and bitwise equal after it), and deepseek-v2-lite-16b's
+64 experts through ``launch/steps.make_train_step`` on a (2, 2) data/model
+mesh at cf = 8 against the single-device step (the loss and every gradient
+leaf), with the dropped share of the token copies at cf = 2 and 1, tokens/s,
+peak memory a rank and the time of a pod sync and of an ``all_to_all``
+(correctness runs, not measurements of communication; one
+``{"model_mesh": ...}`` JSON line); and prints
 
   * the GPU's name and power limit,
   * one JSON line each ``{"tune": ...}``, ``{"front_door": ...}``,
-    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"lm": ...}`` and ``{"zoo": ...}``,
+    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"lm": ...}``, ``{"zoo": ...}`` and
+    ``{"model_mesh": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
     bound and library yardstick,
@@ -63,9 +75,10 @@ times it in turns with this one at each timed shape and mode: an
 ``sstep_inner.cu`` whose entry point is ``sstep_inner_launch(G, v, u, s, b,
 eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
-block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase alone,
-its 2 × 2 mesh over NCCL with one rank a card, on a machine with four cards. ``--zoo`` runs the zoo
-phase alone. Every run prints the launch floor: the device time of a one-element PyTorch operation in a
+block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase and the
+model_mesh phase alone, their four ranks over NCCL with one rank a card, on a
+machine with four cards. ``--zoo`` runs the zoo phase alone, ``--model-mesh``
+the model_mesh phase. Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
 
 Any failed phase ends the process with a non-zero exit code; there is no
@@ -175,6 +188,27 @@ ZOO_LR = {"deepseek-v2-lite-16b": 1e-3, "falcon-mamba-7b": 3e-4}
 ZOO_GRAD_RTOL = 1e-3
 ZOO_DECODE_LEN, ZOO_DECODE_FORWARD_TOL, ZOO_CPU_RTOL = 64, 2e-3, 1e-4
 ZOO_SERVE_BATCH, ZOO_SERVE_DEPTH, ZOO_SERVE_STEPS = 8, 512, 32
+# the model_mesh phase: four processes sharing the card (gloo with CUDA
+# tensors; one a card over NCCL with --mesh-nccl), published widths, depth
+# cut to 2 layers. (a) qwen2.5-3b on a (2, 1, 2) ("pod", "data", "model") mesh
+# through train(mesh=...): MM_STEPS adamw steps (lr MM_LR) of MM_BATCH × MM_SEQ
+# global fp32 tokens, a pod sync every MM_TAU, against a card-side FedAvg
+# oracle (each pod's half batch through the single-device step, separate
+# optimizer states, the parameter mean at each sync): each step's loss within
+# MM_LOSS_RTOL; the final parameters' mean |Δ| within MM_PARAM_MEAN_ATOL and
+# every entry within adam's reach of 2·lr·steps. (Float32 sums over the model
+# shards run in another order; where an entry's gradient is mostly rounding —
+# a key bias's is zero in exact arithmetic, the softmax ignoring a shift —
+# adam's normalised step turns that noise into moves of up to lr a step: 4.8e-5
+# on a key bias, 1.4e-5 on w_down after 2 steps of reduced qwen on the CPU,
+# where plain SGD agrees to 1.2e-7.)
+# (b) deepseek-v2-lite-16b (64 experts) on a (2, 2) ("data", "model") mesh:
+# one launch/steps.make_train_step step of MM_MOE_BATCH × MM_SEQ at cf = 8
+# against the single-device step: the loss within ZOO_CPU_RTOL, each gradient
+# leaf within ZOO_GRAD_RTOL of its largest entry
+MM_LAYERS, MM_STEPS, MM_BATCH, MM_SEQ, MM_TAU, MM_MOE_BATCH = 2, 4, 8, 512, 2, 4
+MM_LR, MM_LOSS_RTOL, MM_PARAM_MEAN_ATOL = 3e-4, 1e-4, 1e-6
+MM_RANKS = 4
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
@@ -1670,6 +1704,423 @@ def zoo_phase(smi: str, device=None) -> dict:
     return out
 
 
+def _mm_setup(device=None, reduced: bool = False) -> dict:
+    """The model_mesh phase's sizes and device (None: the card). ``reduced``
+    (a CPU rehearsal only): the reduced configs at small batches."""
+    sizes = dict(steps=MM_STEPS, batch=MM_BATCH, seq=MM_SEQ, tau=MM_TAU, moe_batch=MM_MOE_BATCH)
+    if reduced:
+        sizes.update(batch=4, seq=16, moe_batch=4)
+    return {"device": None if device is None else str(device), "reduced": reduced, **sizes}
+
+
+def _mm_configs(setup: dict):
+    """The model_mesh phase's two configs at their published widths, depth
+    cut to ``MM_LAYERS``: (qwen2.5-3b, deepseek-v2-lite-16b, published
+    depths)."""
+    from repro_torch.configs import get_config, reduced
+
+    qwen, deepseek = get_config("qwen2.5-3b"), get_config("deepseek-v2-lite-16b")
+    published = {"qwen2.5-3b": qwen.n_layers, "deepseek-v2-lite-16b": deepseek.n_layers}
+    if setup["reduced"]:
+        return reduced(qwen), reduced(deepseek), published
+    check((qwen.d_model, qwen.n_heads, qwen.n_kv_heads, qwen.d_ff, qwen.vocab_size) == (2048, 16, 2, 11008, 151936),
+          f"qwen2.5-3b is not at its published width: {qwen}")
+    check((deepseek.d_model, deepseek.vocab_size, deepseek.moe.n_experts, deepseek.moe.top_k, deepseek.moe.d_ff_expert)
+          == (2048, 102400, 64, 6, 1408), f"deepseek-v2-lite-16b is not at its published width: {deepseek}")
+    return dataclasses.replace(qwen, n_layers=MM_LAYERS), dataclasses.replace(deepseek, n_layers=MM_LAYERS), published
+
+
+def _mm_sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _mm_peak(device: torch.device, reset: bool = False) -> int:
+    if device.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+def _leaf_file(root: pathlib.Path, path) -> pathlib.Path:
+    return root / (".".join(map(str, path)) + ".npy")
+
+
+def _local_oracle(root: pathlib.Path, path, t) -> torch.Tensor:
+    """The oracle's leaf at ``path`` laid out as ``t`` (this rank's shard of
+    a DTensor, or the whole tensor)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    want = torch.from_numpy(np.ascontiguousarray(np.load(_leaf_file(root, path), mmap_mode="r")))
+    if isinstance(t, DTensor):
+        return distribute_tensor(want, t.device_mesh, t.placements, src_data_rank=None).to_local()
+    return want.to(t.device)
+
+
+def _mm_hybrid(out: pathlib.Path, setup: dict) -> dict:
+    """(a), on one rank: qwen2.5-3b through ``train(mesh=...)`` on the
+    (2, 1, 2) mesh. Each pod sync is wrapped to time it and to read, over
+    the "pod" group, how far the pods drifted before it (max − min of every
+    parameter entry) and whether they hold the same bits after it (max ==
+    min); the final parameters are held against the oracle's, shard by
+    shard."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.train.loop as loop
+    from repro_torch._tree import tree_paths
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch import resolve_device
+    from repro_torch.optim.sgd import adamw
+
+    cfg = _mm_configs(setup)[0]
+    device = resolve_device(setup["device"])
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), device=device)
+    group = mesh.get_group("pod")
+    syncs, final = [], [None]
+    checks_s = [0.0]
+    real_sync = loop.make_sync_step
+
+    def spread(params):
+        """max over the entries of (max − min over the pods), a leaf at a time."""
+        worst = 0.0
+        for _, t in tree_paths(params):
+            hi = (t.to_local() if isinstance(t, DTensor) else t).detach().clone()
+            lo = hi.clone()
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+            worst = max(worst, float((hi - lo).max()))
+            del hi, lo
+        return worst
+
+    def instrumented(mesh_):
+        sync = real_sync(mesh_)
+
+        def run(params):
+            t0 = time.perf_counter()
+            drift = spread(params)
+            _mm_sync(device)
+            t1 = time.perf_counter()
+            new = sync(params)
+            _mm_sync(device)
+            t2 = time.perf_counter()
+            after = spread(new)
+            _mm_sync(device)
+            checks_s[0] += (t1 - t0) + (time.perf_counter() - t2)
+            syncs.append({"drift_before": drift, "spread_after": after, "sync_ms": (t2 - t1) * 1e3})
+            final[0] = new
+            return new
+
+        return run
+
+    loop.make_sync_step = instrumented
+    try:
+        _mm_peak(device, reset=True)
+        report = loop.train(cfg, steps=setup["steps"], batch=setup["batch"], seq_len=setup["seq"], tau=setup["tau"],
+                            mesh=mesh, log_every=1, opt=adamw(MM_LR), seed=0, device=device)
+        peak = _mm_peak(device)
+    finally:
+        loop.make_sync_step = real_sync
+    leaves = {}
+    for path, t in tree_paths(final[0]):
+        want = _local_oracle(out / "oracle_a", path, t)
+        got = t.to_local() if isinstance(t, DTensor) else t
+        diff = (got - want).abs()
+        leaves["/".join(map(str, path))] = (float(diff.max()), float(diff.sum()), diff.numel())
+        del want, diff
+    tokens = setup["steps"] * setup["batch"] * setup["seq"]
+    wall = tokens / report.tokens_per_s
+    return {"losses": report.losses, "syncs": syncs, "leaves": leaves,
+            "tokens_per_s": report.tokens_per_s, "checks_s": checks_s[0],
+            "tokens_per_s_without_checks": tokens / (wall - checks_s[0]),
+            "max_memory_allocated": peak}
+
+
+def _grad_optimizer():
+    """An ``Optimizer`` whose update returns the gradient as the new
+    parameters: one train step then gives its gradients exactly."""
+    from repro_torch.optim.sgd import Optimizer
+
+    return Optimizer(init=lambda params: (), update=lambda grads, state, params: (grads, state))
+
+
+def _mm_moe(out: pathlib.Path, setup: dict) -> dict:
+    """(b), on one rank: deepseek-v2-lite-16b, one ``make_train_step`` step on
+    the (2, 2) mesh at cf = 8 (its gradients, shard by shard, against the
+    oracle's); the dropped share of the token copies at cf = 2 and 1 (a
+    forward of the first microbatch); the time of one ``all_to_all`` of the
+    dispatch buffer of a microbatch at cf = 2 over the "model" group."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_paths
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import distribute_params, init_params, lm_loss, moe_ep, param_pspecs, sharding
+    from repro_torch import resolve_device
+    from repro_torch.train.data import MarkovTextStream
+
+    cfg = _mm_configs(setup)[1]
+    device = resolve_device(setup["device"])
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    host = init_params(cfg, dtype=torch.float32, device="cpu", seed=0)
+    specs = param_pspecs(cfg, host, mesh)
+    params = distribute_params(host, specs, mesh)
+    del host
+    toks, targs = next(MarkovTextStream(cfg.vocab_size, seed=0).batches(setup["moe_batch"], setup["seq"]))
+    tok, tgt = torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device)
+    step = make_train_step(cfg, mesh, opt=_grad_optimizer(), param_specs=specs)
+    moe_ep.CAPACITY_FACTOR = 8.0
+    moe_ep.copies.update(routed=0, dropped=0)
+    _mm_sync(device)
+    _mm_peak(device, reset=True)
+    t0 = time.perf_counter()
+    grads, _, loss = step(params, (), tok, tgt)
+    _mm_sync(device)
+    step_s = time.perf_counter() - t0
+    peak = _mm_peak(device)
+    drops = {"cf8": dict(moe_ep.copies)}
+    leaves = {}
+    for path, g in tree_paths(grads):
+        want = _local_oracle(out / "oracle_b", path, g)
+        leaves["/".join(map(str, path))] = (float((g.to_local() - want).abs().max()), float(want.abs().max()))
+        del want
+    del grads
+    dp = mesh.size(0)
+    for cf in (2.0, 1.0):
+        moe_ep.CAPACITY_FACTOR = cf
+        moe_ep.copies.update(routed=0, dropped=0)
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            lm_loss(cfg, params, tok[:dp], tgt[:dp])
+        drops[f"cf{cf:g}"] = dict(moe_ep.copies)
+    moe_ep.CAPACITY_FACTOR = 2.0
+    m, k, d = mesh.size(1), cfg.moe.top_k, cfg.d_model
+    t_pad = -(-setup["seq"] // m)  # one sequence a data rank, split over "model"
+    cap = (t_pad * k * 8) // (4 * m)
+    send = torch.randn((m * cap, d), device=device)
+    recv = torch.empty_like(send)
+    group = mesh.get_group("model")
+    times = []
+    for _ in range(6):
+        _mm_sync(device)
+        t0 = time.perf_counter()
+        dist.all_to_all_single(recv, send, group=group)
+        _mm_sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": float(loss), "step_s": step_s, "tokens_per_s": setup["moe_batch"] * setup["seq"] / step_s,
+            "max_memory_allocated": peak, "leaves": leaves, "copies": drops,
+            "all_to_all_ms": statistics.median(times[1:]), "all_to_all_bytes": send.numel() * 4}
+
+
+def model_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, setup: dict) -> None:
+    """One rank of the model_mesh phase (a spawned process): (a) then (b);
+    writes its numbers under ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=900))
+    try:
+        from repro_torch import resolve_device
+
+        res = {"device": str(resolve_device(setup["device"])), "hybrid": _mm_hybrid(pathlib.Path(out), setup)}
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        res["moe"] = _mm_moe(pathlib.Path(out), setup)
+        (pathlib.Path(out) / f"mm_rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _save_leaves(root: pathlib.Path, tree) -> None:
+    from repro_torch._tree import tree_paths
+
+    root.mkdir()
+    for path, t in tree_paths(tree):
+        np.save(_leaf_file(root, path), t.detach().cpu().numpy())
+
+
+def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None = None) -> dict:
+    """The model mesh at published width, depth cut to ``MM_LAYERS``: the
+    card-side oracles first, in this process (their results kept on the
+    host, their memory freed), then ``MM_RANKS`` spawned processes in a
+    ``ranks_backend`` group — gloo with CUDA tensors: four ranks on the one
+    card; NCCL (``--mesh-nccl``): a card each — run (a) the hybrid-2D
+    trainer and (b) the expert-parallel MoE (``_mm_hybrid``, ``_mm_moe``).
+    ``setup``: ``_mm_setup()`` (the card, published widths) unless a CPU
+    rehearsal passes its own. Returns the numbers for the phase's JSON
+    line."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import resolve_device
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.launch.steps import make_train_step as steps_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.sgd import adamw
+    from repro_torch.train.data import MarkovTextStream
+    from repro_torch.train.loop import make_train_step
+
+    started = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for fp32 matmuls")
+    setup = setup or _mm_setup()
+    device = resolve_device(setup["device"])
+    qwen, deepseek, published = _mm_configs(setup)
+    steps, batch, seq, tau, moe_batch = (setup[k] for k in ("steps", "batch", "seq", "tau", "moe_batch"))
+    where = ("gloo, CUDA tensors, 4 processes on one card" if ranks_backend == "gloo"
+             else f"{ranks_backend}, a card a rank")
+    out = {"card": smi, "ranks": where, "dtype": "float32", "tf32": False,
+           "note": "correctness runs, not measurements of communication: gloo moves each CUDA tensor through the "
+                   "host, and four processes share one card"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # (a)'s oracle: two pods, each its own parameters and adamw state, on
+        # its half of each global batch; the parameter mean every MM_TAU steps
+        t0 = time.perf_counter()
+        host = init_params(qwen, dtype=torch.float32, device="cpu", seed=0)
+        n_qwen = sum(t.numel() for t in tree_leaves(host))
+        opt = adamw(MM_LR)
+        step = make_train_step(qwen, opt)
+        states = []
+        for _ in range(2):
+            card = tree_map(lambda t: t.to(device), host)
+            states.append((card, opt.init(card)))
+        del host, card
+        it = MarkovTextStream(qwen.vocab_size, seed=0).batches(batch, seq)
+        half = batch // 2
+        oracle_losses = []
+        for k in range(steps):
+            toks, targs = next(it)
+            pod_losses = []
+            for p in range(2):
+                pod_batch = (torch.from_numpy(toks[p * half:(p + 1) * half]).to(device),
+                             torch.from_numpy(targs[p * half:(p + 1) * half]).to(device))
+                states[p], loss = step(states[p], pod_batch)
+                pod_losses.append(loss)
+            oracle_losses.append(float(torch.mean(torch.stack(pod_losses))))
+            if (k + 1) % tau == 0:
+                mean = tree_map(lambda a, b: (a + b) / 2, states[0][0], states[1][0])
+                states = [(mean, s) for _, s in states]
+        _save_leaves(tmp / "oracle_a", states[0][0])
+        del states, mean, step
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        oracle_a_s = time.perf_counter() - t0
+        # (b)'s oracle: the single-device step's loss and gradients
+        t0 = time.perf_counter()
+        host = init_params(deepseek, dtype=torch.float32, device="cpu", seed=0)
+        n_deepseek = sum(t.numel() for t in tree_leaves(host))
+        card = tree_map(lambda t: t.to(device), host)
+        del host
+        toks, targs = next(MarkovTextStream(deepseek.vocab_size, seed=0).batches(moe_batch, seq))
+        grads, _, loss = steps_train_step(deepseek, None, opt=_grad_optimizer())(
+            card, (), torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device))
+        oracle_b_loss = float(loss)
+        _save_leaves(tmp / "oracle_b", grads)
+        del card, grads, loss
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        oracle_b_s = time.perf_counter() - t0
+        log(f"[mmesh] oracles on the card: (a) qwen2.5-3b, 2 pods × {steps} steps, losses {oracle_losses} "
+            f"({oracle_a_s:.1f} s); (b) deepseek-v2-lite-16b one step of {moe_batch} × {seq}, loss "
+            f"{oracle_b_loss:.7f} ({oracle_b_s:.1f} s)")
+
+        t0 = time.perf_counter()
+        mp.start_processes(model_mesh_rank, args=(MM_RANKS, str(tmp / "store"), str(tmp), ranks_backend, setup),
+                           nprocs=MM_RANKS, start_method="spawn", join=True)
+        spawned_s = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"mm_rank{r}.json").read_text()) for r in range(MM_RANKS)]
+
+    # (a) the hybrid-2D trainer
+    hyb = [r["hybrid"] for r in ranks]
+    losses = hyb[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle_losses))
+    gaps = {leaf: max(h["leaves"][leaf][0] for h in hyb) for leaf in hyb[0]["leaves"]}
+    worst = max(gaps, key=gaps.get)
+    param_gap, reach = gaps[worst], 2 * MM_LR * steps
+    param_mean = (sum(v[1] for h in hyb for v in h["leaves"].values())
+                  / sum(v[2] for h in hyb for v in h["leaves"].values()))
+    syncs = hyb[0]["syncs"]
+    log(f"[mmesh] (a) qwen2.5-3b (published width, {MM_LAYERS} of {published['qwen2.5-3b']} layers, "
+        f"{n_qwen / 1e6:.1f} M parameters) through train(mesh=...) on (2, 1, 2) (pod, data, model), {where}: "
+        f"{steps} adamw steps of {batch} × {seq} fp32 tokens, τ = {tau}: losses {losses} vs the FedAvg "
+        f"oracle's {oracle_losses} (worst relative {loss_rel:.3g}, limit {MM_LOSS_RTOL:g}); final parameters mean |Δ| "
+        f"{param_mean:.3g} (limit {MM_PARAM_MEAN_ATOL:g}), max |Δ| {param_gap:.3g} at {worst} (limit 2·lr·steps = "
+        f"{reach:.3g}); per sync: drift before "
+        f"{[s['drift_before'] for s in syncs]}, spread after {[s['spread_after'] for s in syncs]}, "
+        f"{[round(s['sync_ms'], 1) for s in syncs]} ms; {hyb[0]['tokens_per_s']:.0f} tokens/s "
+        f"({hyb[0]['tokens_per_s_without_checks']:.0f} without the drift checks); max_memory_allocated per rank "
+        f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in hyb]} GiB — {smi}")
+    check(all(h["losses"] == losses for h in hyb), "(a): the ranks report different losses")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"(a): the losses are {losses}")
+    check(loss_rel <= MM_LOSS_RTOL, f"(a): the losses are {loss_rel} from the oracle's")
+    check(param_mean <= MM_PARAM_MEAN_ATOL, f"(a): the final parameters are {param_mean} from the oracle's on average")
+    check(param_gap <= reach, f"(a): the final {worst} is {param_gap} from the oracle's")
+    for h in hyb:
+        check(len(h["syncs"]) == steps // tau, f"(a): {len(h['syncs'])} syncs, expected {steps // tau}")
+        check(all(s["drift_before"] > 0 for s in h["syncs"]), f"(a): the pods did not drift before a sync: {h['syncs']}")
+        check(all(s["spread_after"] == 0 for s in h["syncs"]), f"(a): the pods differ after a sync: {h['syncs']}")
+    out["hybrid"] = {"arch": "qwen2.5-3b", "mesh": [2, 1, 2], "axes": ["pod", "data", "model"],
+                     "entry": "repro_torch.train.loop.train(mesh=...)", "layers": MM_LAYERS,
+                     "published_layers": published["qwen2.5-3b"],
+                     "reduced": [f"n_layers {published['qwen2.5-3b']} -> {MM_LAYERS}"], "params": n_qwen,
+                     "batch": batch, "seq_len": seq, "steps": steps, "tau": tau, "optimizer": f"adamw({MM_LR:g})",
+                     "losses": losses, "oracle_losses": oracle_losses, "loss_rel": loss_rel, "param_gap": param_gap,
+                     "param_gap_leaf": worst, "param_mean_gap": param_mean, "leaf_gaps": gaps, "syncs_rank0": syncs,
+                     "sync_ms": statistics.median(s["sync_ms"] for h in hyb for s in h["syncs"]),
+                     "tokens_per_s": hyb[0]["tokens_per_s"],
+                     "tokens_per_s_without_checks": hyb[0]["tokens_per_s_without_checks"],
+                     "max_memory_allocated": [h["max_memory_allocated"] for h in hyb], "oracle_s": oracle_a_s}
+
+    # (b) the expert-parallel MoE
+    moe = [r["moe"] for r in ranks]
+    loss_b = moe[0]["loss"]
+    loss_b_rel = abs(loss_b - oracle_b_loss) / abs(oracle_b_loss)
+    grad_rel = {leaf: max(m["leaves"][leaf][0] for m in moe) / max(max(m["leaves"][leaf][1] for m in moe), 1e-30)
+                for leaf in moe[0]["leaves"]}
+    worst = max(grad_rel, key=grad_rel.get)
+
+    def share(key):
+        routed = sum(m["copies"][key]["routed"] for m in moe)
+        return sum(m["copies"][key]["dropped"] for m in moe) / max(routed, 1)
+
+    shares = {key: share(key) for key in ("cf8", "cf2", "cf1")}
+    log(f"[mmesh] (b) deepseek-v2-lite-16b (published width, 64 experts top-6, {MM_LAYERS} of "
+        f"{published['deepseek-v2-lite-16b']} layers, {n_deepseek / 1e9:.3f} B parameters) on (2, 2) (data, model), "
+        f"{where}: one launch/steps.make_train_step step of {moe_batch} × {seq} at cf = 8: loss {loss_b:.7f} vs "
+        f"the single-device step's {oracle_b_loss:.7f} (relative {loss_b_rel:.3g}, limit {ZOO_CPU_RTOL:g}); gradients, "
+        f"worst leaf {worst} {grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves; dropped "
+        f"copies {shares}; the step {moe[0]['step_s']:.2f} s ({moe[0]['tokens_per_s']:.0f} tokens/s); all_to_all of "
+        f"{moe[0]['all_to_all_bytes'] / 2**20:.1f} MiB over 'model' {[round(m['all_to_all_ms'], 2) for m in moe]} ms; "
+        f"max_memory_allocated per rank {[round(m['max_memory_allocated'] / 2**30, 2) for m in moe]} GiB — {smi}")
+    check(math.isfinite(loss_b) and loss_b_rel <= ZOO_CPU_RTOL, f"(b): the loss is {loss_b_rel} from the oracle's")
+    check(grad_rel[worst] <= ZOO_GRAD_RTOL, f"(b): the gradient of {worst} is {grad_rel[worst]} from the oracle's")
+    check(shares["cf8"] == 0.0, f"(b): copies dropped at cf = 8: {shares}")
+    check(all(m["copies"]["cf8"]["routed"] > 0 for m in moe), "(b): a rank routed no copy through moe_ep")
+    out["moe"] = {"arch": "deepseek-v2-lite-16b", "mesh": [2, 2], "axes": ["data", "model"],
+                  "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, ...)", "layers": MM_LAYERS,
+                  "published_layers": published["deepseek-v2-lite-16b"],
+                  "reduced": [f"n_layers {published['deepseek-v2-lite-16b']} -> {MM_LAYERS}"], "params": n_deepseek,
+                  "batch": moe_batch, "seq_len": seq, "cf": 8.0, "loss": loss_b, "oracle_loss": oracle_b_loss,
+                  "loss_rel": loss_b_rel, "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst,
+                  "dropped_share": shares, "step_s": moe[0]["step_s"], "tokens_per_s": moe[0]["tokens_per_s"],
+                  "all_to_all_ms": [m["all_to_all_ms"] for m in moe], "all_to_all_bytes": moe[0]["all_to_all_bytes"],
+                  "max_memory_allocated": [m["max_memory_allocated"] for m in moe], "oracle_s": oracle_b_s}
+    out["devices"] = sorted({r["device"] for r in ranks})
+    out["spawned_s"] = spawned_s
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[mmesh] the phase took {out['phase_s']:.1f} s (spawned ranks {spawned_s:.1f} s)")
+    return out
+
+
 def mesh_spec(p_r: int, p_c: int, backend: str, delay: int = 0, precision: str = "fp32"):
     """The mesh phase's spec: full-size rcv1, the main path's s, b, τ, η and
     rounds on a p_r × p_c mesh, a loss sample every 4 rounds."""
@@ -1938,8 +2389,10 @@ def mesh_nccl_main(smi: str) -> None:
           f"--mesh-nccl needs {MESH_P * MESH_P} cards, found {torch.cuda.device_count()}")
     _build.build_all()
     mesh = mesh_phase(smi, ranks_backend="nccl")
+    model_mesh = model_mesh_phase(smi, ranks_backend="nccl")
     print(smi, flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"model_mesh": model_mesh}), flush=True)
     device_line()
 
 
@@ -1962,6 +2415,12 @@ def main() -> None:
         zoo = zoo_phase(smi)
         print(smi, flush=True)
         print(json.dumps({"zoo": zoo}), flush=True)
+        device_line()
+        return
+    if "--model-mesh" in sys.argv[1:]:
+        model_mesh = model_mesh_phase(smi)
+        print(smi, flush=True)
+        print(json.dumps({"model_mesh": model_mesh}), flush=True)
         device_line()
         return
 
@@ -2001,6 +2460,7 @@ def main() -> None:
     # with what the solver's phases keep); then the rest of the zoo
     lm = lm_phase(smi)
     zoo = zoo_phase(smi)
+    model_mesh = model_mesh_phase(smi)
 
     t0 = time.perf_counter()
     ds = make_dataset(DATASET, seed=0)
@@ -2442,6 +2902,7 @@ def main() -> None:
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"zoo": zoo}), flush=True)
+    print(json.dumps({"model_mesh": model_mesh}), flush=True)
 
     # ---- phase 6: the kernels line, the device lines ---------------------
     # each (kernel, mode) with its launches on the path that runs it: the

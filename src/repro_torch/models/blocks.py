@@ -19,15 +19,24 @@ float32 leaf (``router``, ``A_log``, the SSM state) and ``jnp`` promotes,
 the port casts to the promoted type at the same point. No fused attention
 call: its masking and accumulation differ from the reference's. No TPU
 kernel lies on this path (the reference writes it in ``jnp``/``lax``).
+
+On a model mesh the parameters are DTensors and each ``shard`` call is the
+reference's ``with_sharding_constraint`` at the same site
+(``models/sharding.py``); on plain tensors it does nothing. ``moe`` takes
+the expert-parallel path (``models/moe_ep.py``) when the active mesh's
+"model" dim is larger than 1 under the "tp" profile, as the reference's
+does.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ArchConfig, LayerSpec
+from repro_torch.models.sharding import get_abstract_mesh, like, local_region, mesh_sizes, shard
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -58,33 +67,43 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ----------------------------------------------------------- attention
 
 
-def _sdpa(q, k, v, mask, scale) -> torch.Tensor:
+def _sdpa(q, k, v, mask, scale, kv_seq_sharded: bool = False) -> torch.Tensor:
     """Grouped-query attention without repeating the KV heads (the decode
-    path): q (B, S, H, D); k/v (B, L, KV, D) with H = KV·G."""
+    path): q (B, S, H, D); k/v (B, L, KV, D) with H = KV·G.
+    ``kv_seq_sharded``: the scores' L dim keeps the cache's "model"
+    sharding."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     q5 = q.reshape(B, S, KV, H // KV, D)
     logits = torch.einsum("bskgd,blkd->bkgsl", q5, k) * scale
+    seq = "cache_seq" if kv_seq_sharded else None
+    if kv_seq_sharded or PIN_SCORE_BATCH:
+        logits = shard(logits, "batch", None, None, None, seq)
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    if kv_seq_sharded or PIN_SCORE_BATCH:
+        probs = shard(probs, "batch", None, None, None, seq)
     out = torch.einsum("bkgsl,blkd->bskgd", probs, v)
     return out.reshape(B, S, H, D)
 
 
 def _repeat_kv_flat(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, KV, D) → (B, S, H, D): each KV head repeated for its group."""
+    """(B, S, KV, D) → (B, S, H, D): each KV head repeated for its group,
+    sharded over heads where divisible."""
     KV = k.shape[2]
     if KV != n_heads:
         k = torch.repeat_interleave(k, n_heads // KV, dim=2)
-    return k
+    return shard(k, "batch", None, "heads", None)
 
 
 def _sdpa_flat(q, k, v, mask, scale) -> torch.Tensor:
     """Flat-head attention (train path): q/k/v (B, S, H, D); scores
     (B, H, S, L), masked entries set to the float32 minimum."""
     logits = torch.einsum("bshd,blhd->bhsl", q, k) * scale
+    logits = shard(logits, "batch", "heads", None, None)
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    probs = shard(probs, "batch", "heads", None, None)
     return torch.einsum("bhsl,blhd->bshd", probs, v)
 
 
@@ -92,6 +111,8 @@ def _sdpa_flat(q, k, v, mask, scale) -> torch.Tensor:
 # memory bound on the (S × S) scores)
 CHUNKED_ATTN_THRESHOLD = 8192
 ATTN_Q_CHUNK = 1024
+# pin the batch dim of attention scores (the reference's ablation toggle)
+PIN_SCORE_BATCH = True
 
 
 def _sdpa_chunked(q, k, v, scale, window: int = 0, q_chunk: int = ATTN_Q_CHUNK):
@@ -106,6 +127,7 @@ def _sdpa_chunked(q, k, v, scale, window: int = 0, q_chunk: int = ATTN_Q_CHUNK):
         qc = q[:, ci * q_chunk : (ci + 1) * q_chunk]
         qpos = ci * q_chunk + torch.arange(q_chunk, device=q.device)
         logits = torch.einsum("bshd,blhd->bhsl", qc, k).to(torch.float32) * scale
+        logits = shard(logits, "batch", "heads", None, None)
         mask = qpos[:, None] >= kpos[None, :]
         if window:
             mask &= qpos[:, None] - kpos[None, :] < window
@@ -130,19 +152,26 @@ def attn_train(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Te
         k = k + p["bk"].reshape(KV, D)
         v = v + p["bv"].reshape(KV, D)
     pos = torch.arange(S, device=x.device)
-    cos, sin = rope_frequencies(D, cfg.rope_theta, pos)
+    cos, sin = (like(t, q) for t in rope_frequencies(D, cfg.rope_theta, pos))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
     window = cfg.sliding_window if (spec.attn == "swa" and cfg.sliding_window) else 0
     kr = _repeat_kv_flat(k, H)
     vr = _repeat_kv_flat(v, H)
+    # the scores' batch and head dims are both split: a region of this rank's
+    # (batch, heads) block, laid out as the reference's annotations pin it
+    heads = ("batch", None, "heads", None)
     if S > CHUNKED_ATTN_THRESHOLD and S % ATTN_Q_CHUNK == 0:
-        out = _sdpa_chunked(q, kr, vr, D**-0.5, window=window, q_chunk=ATTN_Q_CHUNK)
+        out = local_region(lambda q, k, v: _sdpa_chunked(q, k, v, D**-0.5, window=window, q_chunk=ATTN_Q_CHUNK),
+                           (q, heads), (kr, heads), (vr, heads))
     else:
         causal = pos[:, None] >= pos[None, :]
         if window:
             causal &= pos[:, None] - pos[None, :] < window
-        out = _sdpa_flat(q, kr, vr, causal[None, None], D**-0.5)
+        out = local_region(lambda q, k, v: _sdpa_flat(q, k, v, causal[None, None], D**-0.5),
+                           (q, heads), (kr, heads), (vr, heads))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
 
 
@@ -177,10 +206,10 @@ def attn_decode(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, cache, pos
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = torch.remainder(pos, L).reshape(1).long()
-    ck = cache["k"].index_copy(1, slot, k)
-    cv = cache["v"].index_copy(1, slot, v)
+    ck = shard(cache["k"].index_copy(1, slot, k), "batch", "cache_seq", None, None)
+    cv = shard(cache["v"].index_copy(1, slot, v), "batch", "cache_seq", None, None)
     valid = (torch.arange(L, device=x.device) <= slot) | (pos >= L)
-    out = _sdpa(q, ck, cv, valid[None, None, None, None, :], D**-0.5)
+    out = _sdpa(q, ck, cv, valid[None, None, None, None, :], D**-0.5, kv_seq_sharded=True)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
     return y, {"k": ck, "v": cv}
 
@@ -194,7 +223,7 @@ def _mla_qkv(p, cfg: ArchConfig, x, positions):
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, qd))
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    cos, sin = rope_frequencies(m.qk_rope_head_dim, cfg.rope_theta, positions)
+    cos, sin = (like(t, q) for t in rope_frequencies(m.qk_rope_head_dim, cfg.rope_theta, positions))
     q_rope = apply_rope(q_rope, cos, sin)
     ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])  # (B, S, lora)
     k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"])  # one rope key shared by the heads
@@ -202,20 +231,34 @@ def _mla_qkv(p, cfg: ArchConfig, x, positions):
     return q_nope, q_rope, ckv, k_rope
 
 
-def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, mask):
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, mask, kv_seq_sharded: bool = False):
     """Latent-space attention: the queries are absorbed into the KV-LoRA
     basis, so the cache stays (lora + rope) wide. The scale is applied
-    inside the mask's ``where``, as the reference does."""
+    inside the mask's ``where``, as the reference does.
+    ``kv_seq_sharded``: the scores' L dim keeps the cache's "model"
+    sharding (decode)."""
     m = cfg.mla
     H = cfg.n_heads
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # q̃ = q_nope · W_UKᵀ
-    logits = torch.einsum("bshr,blr->bhsl", q_lat, ckv)
-    logits = logits + torch.einsum("bshk,blk->bhsl", q_rope, k_rope)
+    pin = ("batch", None, None, "cache_seq") if kv_seq_sharded else ("batch", None, None, None)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    logits = torch.where(mask, logits * scale, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q_nope.dtype)
-    ctx = torch.einsum("bhsl,blr->bshr", probs, ckv)  # the context in the lora space
+
+    def scores(q_lat, q_rope, ckv, k_rope):
+        logits = torch.einsum("bshr,blr->bhsl", q_lat, ckv)
+        logits = logits + torch.einsum("bshk,blk->bhsl", q_rope, k_rope)
+        if kv_seq_sharded or PIN_SCORE_BATCH:
+            logits = shard(logits, *pin)
+        logits = torch.where(mask, logits * scale, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q_nope.dtype)
+        if kv_seq_sharded or PIN_SCORE_BATCH:
+            probs = shard(probs, *pin)
+        return torch.einsum("bhsl,blr->bshr", probs, ckv)  # the context in the lora space
+
+    # a region of this rank's batch block, its scores' heads replicated as
+    # the reference's pin lays them out (its einsums split two batch dims)
+    q_dims, kv_dims = ("batch", None, None, None), ("batch", None, None)
+    ctx = local_region(scores, (q_lat, q_dims), (q_rope, q_dims), (ckv, kv_dims), (k_rope, kv_dims))
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bshr,rhk->bshk", ctx, w_uv)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, m.v_head_dim, cfg.d_model))
@@ -261,10 +304,10 @@ def mla_decode(p, cfg: ArchConfig, spec: LayerSpec, x, cache, pos):
     q_nope, q_rope, ckv_new, kr_new = _mla_qkv(p, cfg, x, pos.reshape(1))
     L = cache["ckv"].shape[1]
     slot = torch.clamp(pos, max=L - 1).reshape(1).long()
-    ckv = cache["ckv"].index_copy(1, slot, ckv_new)
+    ckv = shard(cache["ckv"].index_copy(1, slot, ckv_new), "batch", "cache_seq", None)
     kr = cache["kr"].index_copy(1, slot, kr_new)
     valid = torch.arange(L, device=x.device) <= pos
-    y = _mla_attend(p, cfg, q_nope, q_rope, ckv, kr, valid[None, None, None, :])
+    y = _mla_attend(p, cfg, q_nope, q_rope, ckv, kr, valid[None, None, None, :], kv_seq_sharded=True)
     return y, {"ckv": ckv, "kr": kr}
 
 
@@ -278,6 +321,7 @@ def _act(name: str, x):
 def mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU)."""
     h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
+    h = shard(h, "batch", None, "ff")
     return h @ p["w_down"]
 
 
@@ -291,18 +335,59 @@ def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
     return [t.to(dtype) for t in ts]
 
 
+def _grouped_mlp(cfg: ArchConfig, rows: torch.Tensor, sizes: list[int], w_gate, w_up, w_down) -> torch.Tensor:
+    """The gated MLP of expert e on its ``sizes[e]`` consecutive rows of
+    ``rows`` (sorted by expert), one matmul per non-empty group (the
+    reference's ``ragged_dot``). Returns the sum(sizes) processed rows."""
+    # one view an expert: the backward stacks their gradients once, where
+    # indexing [ex] would materialize a full-size zero gradient per expert
+    wg, wu, wd = w_gate.unbind(0), w_up.unbind(0), w_down.unbind(0)
+    ys = []
+    start = 0
+    for ex, n in enumerate(sizes):
+        if n:
+            r = rows[start:start + n]
+            ys.append((_act(cfg.mlp_act, r @ wg[ex]) * (r @ wu[ex])) @ wd[ex])
+            start += n
+    return torch.cat(ys) if ys else rows[:0]
+
+
+_MOE_WEIGHTS = ("router", "w_gate_e", "w_up_e", "w_down_e", "w_gate_sh", "w_up_sh", "w_down_sh")
+
+
 def moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Token-choice top-k MoE, the reference's local path: a float32
     softmax router, ``top_k`` renormalised (the sum clipped at 1e-9), the
     (token, k) pairs stably sorted by expert, one matmul per non-empty
     expert group (the reference's ``ragged_dot``), the inverse permutation,
-    the weighted sum over k, then the shared experts.
+    the weighted sum over k, then the shared experts. The group sizes are
+    read on the host: one device sync per call.
 
-    The group sizes are read on the host: one device sync per call. The
-    reference's expert-parallel branch (``models/moe_ep.py``, taken under a
-    mesh whose "model" axis is larger than 1) is not reachable here: the
-    port has no model mesh yet (ROADMAP.md Queue 1 item 13c).
+    On a mesh whose "model" dim is larger than 1 (profile "tp") it is the
+    expert-parallel ``moe_ep``. On any other mesh (DTensor ``x``) no DTensor
+    rule routes tokens, so each rank runs the local path on its batch shard
+    with the weights replicated — what GSPMD does with the reference's
+    ``ragged_dot``, which has no partitioning rule.
     """
+    mesh = get_abstract_mesh()
+    if mesh is not None and cfg.sharding_profile == "tp" and mesh_sizes(mesh).get("model", 1) > 1:
+        from repro_torch.models.moe_ep import moe_ep
+
+        return moe_ep(cfg, p, x)
+    if isinstance(x, DTensor):
+        x = shard(x, "batch", None, None)
+        pl = list(x.placements)
+        # a weight's gradient is a partial sum over the dims that split the batch
+        grad = [Partial() if isinstance(q, Shard) else Replicate() for q in pl]
+        rep = [Replicate()] * len(pl)
+        loc = {k: v.redistribute(x.device_mesh, rep).to_local(grad_placements=grad) if isinstance(v, DTensor) else v
+               for k, v in p.items() if k in _MOE_WEIGHTS}
+        y = _moe_local(loc, cfg, x.to_local(grad_placements=pl))
+        return DTensor.from_local(y, x.device_mesh, pl, run_check=False)
+    return _moe_local(p, cfg, x)
+
+
+def _moe_local(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     e = cfg.moe
     B, S, d = x.shape
     t = x.reshape(B * S, d)
@@ -319,15 +404,8 @@ def moe(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # host sync (bincount and an int repeat_interleave would add their own)
     sizes = torch.zeros(p["w_gate_e"].shape[0], dtype=torch.int64, device=x.device)
     sizes = sizes.scatter_add_(0, flat_expert, torch.ones_like(flat_expert)).tolist()
-    # one view an expert: the backward stacks their gradients once, where
-    # indexing [ex] would materialize a full-size zero gradient per expert
-    w_gate, w_up, w_down = (p[k].unbind(0) for k in ("w_gate_e", "w_up_e", "w_down_e"))
-    ys = []
-    for ex, rows in enumerate(torch.split(t_rep, sizes)):
-        if sizes[ex]:
-            h = _act(cfg.mlp_act, rows @ w_gate[ex]) * (rows @ w_up[ex])
-            ys.append(h @ w_down[ex])
-    y = torch.cat(ys)[inv].reshape(B * S, e.top_k, d)
+    y = _grouped_mlp(cfg, t_rep, sizes, p["w_gate_e"], p["w_up_e"], p["w_down_e"])
+    y = y[inv].reshape(B * S, e.top_k, d)
     y = torch.einsum("tkd,tk->td", y, top_p.to(y.dtype))
 
     if e.n_shared:
@@ -387,13 +465,19 @@ def _ssm_scan_chunked(dt, xi, Bc, Cc, A, h0, chunk: int):
 def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """Full-sequence Mamba-1 (selective SSM) forward."""
     mb, d_in, dt_rank = _mamba_dims(cfg)
-    B, S, _ = x.shape
+    S = x.shape[1]
     xz = x @ p["in_proj"]  # (B, S, 2·d_in)
     xi, z = torch.chunk(xz, 2, dim=-1)
-    # causal depthwise convolution over time
-    pad = F.pad(xi, (0, 0, mb.d_conv - 1, 0))
-    xi = sum(pad[:, i : i + S, :] * p["conv_w"][:, i] for i in range(mb.d_conv)) + p["conv_b"]
-    xi = F.silu(xi)
+    xi = shard(xi, "batch", None, "d_inner")
+
+    def conv(xi, conv_w, conv_b):  # causal depthwise convolution over time
+        pad = F.pad(xi, (0, 0, mb.d_conv - 1, 0))
+        return F.silu(sum(pad[:, i : i + S, :] * conv_w[:, i] for i in range(mb.d_conv)) + conv_b)
+
+    # regions of this rank's (batch, channel) block: the padded convolution
+    # and the scan are channel-local
+    chan = ("batch", None, "d_inner")
+    xi = local_region(conv, (xi, chan), (p["conv_w"], ("d_inner", None)), (p["conv_b"], ("d_inner",)))
 
     proj = xi @ p["x_proj"]  # (B, S, dt_rank + 2N)
     dt, Bc, Cc = torch.split(proj, [dt_rank, mb.d_state, mb.d_state], dim=-1)
@@ -403,8 +487,13 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S  # a single chunk, as the reference falls back
-    h0 = torch.zeros((B, d_in, mb.d_state), dtype=torch.float32, device=x.device)
-    y, _ = _ssm_scan_chunked(dt, xi, Bc, Cc, A, h0, chunk)
+
+    def scan(dt, xi, Bc, Cc, A):
+        h0 = torch.zeros((dt.shape[0], dt.shape[2], mb.d_state), dtype=torch.float32, device=dt.device)
+        return _ssm_scan_chunked(dt, xi, Bc, Cc, A, h0, chunk)[0]
+
+    seq = ("batch", None, None)
+    y = local_region(scan, (dt, chan), (xi, chan), (Bc, seq), (Cc, seq), (A, ("d_inner", None)))
     y = y + (xi * p["D"]).to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
     return y @ p["out_proj"]

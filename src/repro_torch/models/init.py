@@ -18,9 +18,16 @@ Built here: every layer of the registry — attention (full and
 sliding-window, GQA/MQA, ``qkv_bias``), multi-head latent attention (MLA),
 Mamba-1, and the dense and MoE feed-forwards — the embedding, ``lm_head``
 and the ``proj`` prefix projection. ``router`` and ``A_log`` stay float32
-whatever ``dtype`` is, as in the reference. The mesh partition specs of
-the reference's ``param_pspecs`` raise ``NotImplementedError``
-(``models/sharding.py``, ROADMAP.md Queue 1 item 13c).
+whatever ``dtype`` is, as in the reference.
+
+Specs: ``param_pspecs`` returns the reference's tree of partition specs,
+entry for entry (model-parallel dims on "model", the paper's p_c role; the
+FSDP dim on "data" where divisible; replicated on any dim that does not
+divide, so every arch places on every mesh), as tuples of per-dim axis
+tuples. ``distribute_params`` places a full tree on a ``DeviceMesh`` as
+DTensors with those placements; ``gather_params`` (and
+``params_to_numpy``) gives the full tensors back, so checkpoints keep the
+reference's layout.
 """
 
 from __future__ import annotations
@@ -28,10 +35,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor, distribute_tensor
+
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.models.blocks import _mamba_dims
 from repro_torch.models.config import ArchConfig, LayerSpec
+from repro_torch.models.sharding import mesh_sizes, placements
 
 
 def padded_experts(n_experts: int) -> int:
@@ -143,10 +153,130 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None, dtype
     return tree_map(lambda t: t.to(device), params)
 
 
-def param_pspecs(*args, **kwargs):
-    """The reference's mesh partition specs: not in the port yet."""
-    raise NotImplementedError("param_pspecs (models/sharding.py) is not in the port yet "
-                              "(ROADMAP.md Queue 1 item 13c)")
+# ---------------------------------------------------------------- specs
+
+
+def _div(size: int, axes: tuple[str, ...], sizes: dict[str, int]) -> bool:
+    total = 1
+    for a in axes:
+        total *= sizes.get(a, 1)
+    return size % total == 0
+
+
+def _wspec(shape, want: tuple[tuple[str, ...] | None, ...], sizes: dict[str, int]) -> tuple:
+    """The spec of a (possibly period-stacked) weight, dropping any axis
+    group that does not divide its dim."""
+    entries = []
+    for size, axes in zip(shape, want):
+        if not axes:
+            entries.append(None)
+            continue
+        axes = tuple(a for a in axes if a in sizes)
+        if axes and _div(size, axes, sizes):
+            entries.append(axes[0] if len(axes) == 1 else axes)
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+_MODEL = ("model",)
+_FSDP = ("data",)
+
+# per-param logical layout: name -> tuple of axis groups per dim (None =
+# replicated); the leading n_periods dim is the caller's
+_LAYOUTS = {
+    "wq": (_FSDP, _MODEL), "wk": (_FSDP, _MODEL), "wv": (_FSDP, _MODEL),
+    "wo": (_MODEL, _FSDP),
+    "bq": (_MODEL,), "bk": (_MODEL,), "bv": (_MODEL,),
+    "w_dkv": (_FSDP, None), "w_kr": (_FSDP, None),
+    "w_uk": (None, _MODEL), "w_uv": (None, _MODEL),
+    "w_gate": (_FSDP, _MODEL), "w_up": (_FSDP, _MODEL), "w_down": (_MODEL, _FSDP),
+    "router": (_FSDP, None),
+    # experts: E over the model axis (expert parallelism) and dim-1 FSDP
+    # over data (all-gathered a layer in models/moe_ep.py); replicated
+    # where E does not divide
+    "w_gate_e": (_MODEL, _FSDP, None), "w_up_e": (_MODEL, _FSDP, None),
+    "w_down_e": (_MODEL, _FSDP, None),
+    "w_gate_sh": (_FSDP, _MODEL), "w_up_sh": (_FSDP, _MODEL), "w_down_sh": (_MODEL, _FSDP),
+    "in_proj": (_FSDP, _MODEL), "out_proj": (_MODEL, _FSDP),
+    "conv_w": (_MODEL, None), "conv_b": (_MODEL,),
+    "x_proj": (_MODEL, None), "dt_proj": (None, _MODEL), "dt_bias": (_MODEL,),
+    "A_log": (_MODEL, None), "D": (_MODEL,),
+    "ln1": (None,), "ln2": (None,),
+}
+
+
+_DP_FSDP = ("data", "model")  # "dp" profile: the model axis folds into FSDP
+
+
+def param_pspecs(cfg: ArchConfig, params_shape, mesh) -> dict:
+    """The reference's spec tree for ``params_shape`` (a tree of anything
+    with ``.shape``) on ``mesh`` (a ``DeviceMesh``, or a {dim: size}
+    mapping): per leaf a tuple with one entry a dim — None, an axis name,
+    or a tuple of axis names (the reference's ``PartitionSpec`` entries).
+    Honors cfg.sharding_profile: "dp" shards every weight's dim 0 over
+    ("data", "model") and nothing else (pure FSDP)."""
+    sizes = mesh_sizes(mesh)
+    dp = cfg.sharding_profile == "dp"
+
+    def leaf_spec(path: tuple, leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        name = path[-1]
+        if dp:
+            if name in ("norm_f", "ln1", "ln2") or len(shape) < 2:
+                return (None,) * len(shape)
+            if name == "embed":
+                # vocab-parallel even under dp
+                return _wspec(shape, (_MODEL, _FSDP), sizes)
+            if name == "lm_head":
+                return _wspec(shape, (_FSDP, _MODEL), sizes)
+            if name == "proj":
+                return _wspec(shape, (_DP_FSDP, None), sizes)
+            # layer params carry the leading n_periods axis: FSDP dim 1
+            return _wspec(shape, (None, _DP_FSDP) + (None,) * (len(shape) - 2), sizes)
+        if name == "embed":
+            # vocab-parallel (Megatron-style): d_model replicated so the
+            # logits matmul contracts locally
+            return _wspec(shape, (_MODEL, None), sizes)
+        if name == "lm_head":
+            return _wspec(shape, (None, _MODEL), sizes)
+        if name == "norm_f":
+            return (None,)
+        if name == "proj":
+            return _wspec(shape, (_FSDP, _MODEL), sizes)
+        layout = _LAYOUTS.get(name)
+        if layout is None:
+            return (None,) * len(shape)
+        if cfg.expert_weight_stationary and name in ("w_gate_e", "w_up_e", "w_down_e"):
+            # serving: experts resident a rank — E over "model" only
+            return _wspec(shape, (None, _MODEL, None, None), sizes)
+        # layer params carry a leading n_periods axis
+        return _wspec(shape, (None,) + tuple(layout), sizes)
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, path + (str(i),)) for i, v in enumerate(tree))
+        return leaf_spec(path, tree)
+
+    return walk(params_shape)
+
+
+def distribute_params(params, specs, mesh):
+    """A full tree (every rank holds the same tensors, on the host or the
+    device) → DTensors on ``mesh`` (a ``DeviceMesh``) with the placements of
+    ``specs`` (``param_pspecs``' tree, or any tree of specs of its
+    structure). Each rank keeps its own shard of its own copy: no data
+    moves between ranks."""
+    return tree_map(lambda t, spec: distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None),
+                    params, specs)
+
+
+def gather_params(tree):
+    """A tree of DTensors (or plain tensors) → the full tensors on every
+    rank (collective where a leaf is sharded)."""
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
 
 
 # ---- the carry between the packages ----
@@ -176,9 +306,12 @@ def params_from_numpy(tree, device=None, dtype=None):
 def params_to_numpy(tree):
     """This package's tree of tensors → numpy arrays on the host, the
     reference's layout (the inverse of ``params_from_numpy``; bf16 leaves
-    widen to float32, which numpy can hold)."""
+    widen to float32, which numpy can hold). DTensor leaves are gathered
+    to their full values (collective: every rank of their mesh calls it)."""
 
     def leaf(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         t = t.detach().to("cpu")
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)

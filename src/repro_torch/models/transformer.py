@@ -14,6 +14,11 @@ each stacked tensor, in the same order, with the same arithmetic.
 does. The cache is the reference's tree, ``{"layers": tuple, "pos": 0-d
 int32}``, so a reference cache carried through ``params_from_numpy``
 decodes here; ``pos`` stays on the device.
+
+On a model mesh (DTensor parameters, ``models/sharding.py``) the same code
+runs with the reference's sharding annotations at its sites; token ids,
+targets and masks enter as replicated DTensors. ``set_profile`` takes
+``cfg.sharding_profile`` at each entry point, as the reference's does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import like, set_profile, shard
 
 
 def _mix_train(p, cfg: ArchConfig, spec, h):
@@ -59,9 +65,11 @@ def forward(
     ``remat``: activation-checkpoint at period granularity (training).
     ``last_only``: head applied to the final position only (prefill —
     no (B, S, V) logits)."""
-    x = params["embed"][tokens.long()]
+    set_profile(cfg.sharding_profile)
+    x = params["embed"][like(tokens.long(), params["embed"])]
     if prefix_emb is not None:
-        x = torch.cat([prefix_emb @ params["proj"], x], dim=1)
+        x = torch.cat([like(prefix_emb, params["proj"]) @ params["proj"], x], dim=1)
+    x = shard(x, "batch", None, None)
 
     def period_fn(x, r: int):
         for spec, stacked in zip(cfg.period, params["layers"]):
@@ -74,7 +82,7 @@ def forward(
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if last_only:
         return x[:, -1:, :] @ head
-    return x @ head
+    return shard(x @ head, "batch", None, "vocab")
 
 
 def lm_loss(
@@ -85,12 +93,15 @@ def lm_loss(
     logits = forward(cfg, params, tokens, prefix_emb, remat=remat)
     if prefix_emb is not None:
         logits = logits[:, prefix_emb.shape[1]:, :]
-    logits = logits.to(torch.float32)
+    logits = shard(logits.to(torch.float32), "batch", None, "vocab")
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    # DTensor cannot gather along a vocab-sharded dim (its masked partial
+    # sum fails): the gold logit is read with the vocab dim replicated
+    gold = torch.gather(shard(logits, "batch", None, None), -1, like(targets.long(), logits)[..., None])[..., 0]
+    nll = shard(logz - gold, "batch", None)
     if mask is None:
         return torch.mean(nll)
+    mask = like(mask, nll)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
 
 
@@ -126,6 +137,7 @@ def _mix_decode(p, cfg: ArchConfig, spec, h, c, pos):
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One token per sequence: tokens (B, 1) → logits (B, 1, V) and the
     next cache (new tensors; ``cache`` is not changed)."""
+    set_profile(cfg.sharding_profile)
     pos = cache["pos"]
     x = params["embed"][tokens.long()]
     new = [[] for _ in cfg.period]  # per period position, the periods' caches

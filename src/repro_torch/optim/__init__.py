@@ -1,9 +1,15 @@
-"""Optimizers for the NN trainer (``sgd``, ``momentum``, ``adamw``).
+"""Optimizers and the paper's hybrid 2D trainer for NN training."""
 
-The paper's hybrid 2D trainer for NN training (``optim/hybrid2d.py``)
-is not in the port yet (ROADMAP.md Queue 1 item 13c).
-"""
-
+from repro_torch.optim.hybrid2d import HybridSchedule, make_hybrid_train_step, make_sync_step, stack_for_pods
 from repro_torch.optim.sgd import Optimizer, adamw, momentum, sgd
 
-__all__ = ["Optimizer", "adamw", "momentum", "sgd"]
+__all__ = [
+    "Optimizer",
+    "adamw",
+    "momentum",
+    "sgd",
+    "HybridSchedule",
+    "make_hybrid_train_step",
+    "make_sync_step",
+    "stack_for_pods",
+]

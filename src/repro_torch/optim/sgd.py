@@ -55,7 +55,8 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.0) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        # zeros_like: a DTensor parameter gets moments with its placements
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
         leaves = tree_leaves(params)
         device = leaves[0].device if leaves else None
         return {

@@ -305,12 +305,12 @@ def test_unported_branches_raise_naming_their_roadmap_item(tmp_path, monkeypatch
     with pytest.raises(ValueError, match="no stream"):
         make_stream_source(t)
     # the pytree half of the checkpoint module is ported (item 13's first
-    # path); the trainer's multi-pod mesh still raises naming its item
+    # path), and the trainer's mesh (item 13c): it takes a DeviceMesh
     from repro_torch.configs import get_config, reduced
     from repro_torch.train import checkpoint, train
 
     assert callable(checkpoint.save_checkpoint) and callable(checkpoint.restore_checkpoint)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train(reduced(get_config("qwen2.5-3b")), steps=1, mesh=object(), device="cpu")
 
 

@@ -212,10 +212,17 @@ def test_prefill_and_serve_steps_match_the_reference(name):
 
 
 def test_steps_without_a_mesh_and_the_mesh_refusal():
+    """Without a mesh the steps run on one device; a mesh's (pod × data)
+    size is the reference's; a mesh needs a process group of its size, and
+    one is refused, saying how to start it, without one."""
+    from repro.compat import abstract_mesh
+    from repro_torch.launch.mesh import make_mesh
+
     params = {"w": torch.ones(2)}
     assert tsteps.data_parallel_size() == 1 == jsteps.data_parallel_size(_one_device_mesh())
     assert tsteps.make_pod_sync_step()(params) is params
-    for call in (lambda: tsteps.data_parallel_size(object()), lambda: tsteps.make_pod_sync_step(object()),
-                 lambda: tsteps.make_train_step(_cfgs("qwen2.5-3b")[1], mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            call()
+    for shape, axes in (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")),
+                        ((2, 4), ("pod", "data")), ((1, 8), ("data", "model"))):
+        assert tsteps.data_parallel_size(dict(zip(axes, shape))) == jsteps.data_parallel_size(abstract_mesh(shape, axes))
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node=4"):
+        make_mesh((2, 2), ("data", "model"), device="cpu")

@@ -43,7 +43,8 @@ SLICE_MODULES = [
     "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.configs.falcon_mamba_7b", "repro_torch.optim", "repro_torch.optim.sgd",
     "repro_torch.train.data", "repro_torch.train.loop", "repro_torch.launch.train",
-    "repro_torch.launch.steps",
+    "repro_torch.launch.steps", "repro_torch.launch.mesh", "repro_torch.models.sharding",
+    "repro_torch.models.moe_ep", "repro_torch.optim.hybrid2d",
 ]
 
 _IMPORT_ALL = """

@@ -265,7 +265,7 @@ def test_trainer_refuses_a_mesh_and_multi_pod_schedules():
     from repro_torch.core.engine import ParallelSGDSchedule
 
     cfg = TC.reduced(TC.get_config("qwen2.5-3b"))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttrain(cfg, steps=1, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="p_r"):
         ttrain(cfg, steps=1, device="cpu", schedule=ParallelSGDSchedule.hybrid(2, 1, 2, 0.1, 4, rounds=1))
@@ -284,7 +284,7 @@ def test_train_cli_on_the_cpu_and_refusals():
     assert len(lines[1].split()) == 2  # log_every=10: the last step only
     refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma-2b", "--device", "cpu",
                               "--mesh", "2x2:data,model"], capture_output=True, text=True, timeout=120, env=env)
-    assert refused.returncode != 0 and "item 13" in refused.stderr
+    assert refused.returncode != 0 and "torchrun --nproc-per-node=4" in refused.stderr
     nocard = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma-2b", "--steps", "1"],
                             capture_output=True, text=True, timeout=120, env=env)
     assert nocard.returncode != 0 and "CUDA" in nocard.stderr
