@@ -55,7 +55,19 @@ mesh at cf = 8 against the single-device step (the loss and every gradient
 leaf), with the dropped share of the token copies at cf = 2 and 1, tokens/s,
 peak memory a rank and the time of a pod sync and of an ``all_to_all``
 (correctness runs, not measurements of communication; one
-``{"model_mesh": ...}`` JSON line); and prints
+``{"model_mesh": ...}`` JSON line), then in the same four ranks (c) decode
+on a (2, 2) data/model mesh — qwen2.5-3b, deepseek-v2-lite-16b (experts
+stationary, through ``moe_ep``) and falcon-mamba-7b at published width, 2
+layers, laid out by ``resolve_config(arch, decode_32k)``, ``param_pspecs``
+and ``cache_shardings``, 32 serve steps of batch 8 against a 512-deep cache,
+every step's logits against the single-device decode on the card, the
+routing first, the cache's placements after every step, a step's
+collectives the same at twice the depth — and (d) the dry run
+(``launch/dryrun.run_combo`` on fake tensors) at (c)'s shape, its parameter
+and cache bytes and collective counts held equal to (c)'s real ones, its
+peak beside ``max_memory_allocated``, with the full-width dry run of
+qwen2.5-3b × train_4k and deepseek-v2-lite-16b × decode_32k on the fake
+(16, 16) mesh beside them (predictions against published peaks); and prints
 
   * the GPU's name and power limit,
   * one JSON line each ``{"tune": ...}``, ``{"front_door": ...}``,
@@ -78,7 +90,8 @@ defines. ``--sweep`` also times the corrections kernel at other consumer
 block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase and the
 model_mesh phase alone, their four ranks over NCCL with one rank a card, on a
 machine with four cards. ``--zoo`` runs the zoo phase alone, ``--model-mesh``
-the model_mesh phase. Every run prints the launch floor: the device time of a one-element PyTorch operation in a
+the model_mesh phase, ``--decode-mesh`` its part (c), ``--dryrun`` its parts (c)
+and (d). Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
 
 Any failed phase ends the process with a non-zero exit code; there is no
@@ -209,6 +222,20 @@ ZOO_SERVE_BATCH, ZOO_SERVE_DEPTH, ZOO_SERVE_STEPS = 8, 512, 32
 MM_LAYERS, MM_STEPS, MM_BATCH, MM_SEQ, MM_TAU, MM_MOE_BATCH = 2, 4, 8, 512, 2, 4
 MM_LR, MM_LOSS_RTOL, MM_PARAM_MEAN_ATOL = 3e-4, 1e-4, 1e-6
 MM_RANKS = 4
+# (c) decode on the (2, 2) mesh: qwen2.5-3b (the "dp" profile under decode),
+# deepseek-v2-lite-16b (MLA; experts stationary, through moe_ep) and
+# falcon-mamba-7b at published width, MM_LAYERS layers, laid out by
+# resolve_config(arch, decode_32k), param_pspecs and cache_shardings: batch
+# MM_DEC_BATCH against a MM_DEC_DEPTH-deep cache, MM_DEC_STEPS serve steps,
+# each step's logits within ZOO_CPU_RTOL of the single-device decode on the
+# card (max |Δ| over max |logit|), deepseek's routing equal first
+MM_DEC_ARCHS = ("deepseek-v2-lite-16b", "qwen2.5-3b", "falcon-mamba-7b")  # deepseek first: (b) drew its weights
+MM_DEC_BATCH, MM_DEC_DEPTH, MM_DEC_STEPS = 8, 512, 32
+# (d) the dry run (launch/dryrun.run_combo) in each rank at (c)'s decode shape,
+# and on the host at full depth on the (16, 16) fake production mesh
+MM_DRY_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b")
+MM_HOST_DRY = (("qwen2.5-3b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"))
+MM_PARTS = ("hybrid", "moe", "decode", "dryrun")
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
@@ -1704,13 +1731,274 @@ def zoo_phase(smi: str, device=None) -> dict:
     return out
 
 
-def _mm_setup(device=None, reduced: bool = False) -> dict:
-    """The model_mesh phase's sizes and device (None: the card). ``reduced``
-    (a CPU rehearsal only): the reduced configs at small batches."""
-    sizes = dict(steps=MM_STEPS, batch=MM_BATCH, seq=MM_SEQ, tau=MM_TAU, moe_batch=MM_MOE_BATCH)
+def _mm_setup(device=None, reduced: bool = False, parts=MM_PARTS) -> dict:
+    """The model_mesh phase's sizes, device (None: the card) and parts (of
+    ``MM_PARTS``). ``reduced`` (a CPU rehearsal only): the reduced configs
+    at small batches."""
+    sizes = dict(steps=MM_STEPS, batch=MM_BATCH, seq=MM_SEQ, tau=MM_TAU, moe_batch=MM_MOE_BATCH,
+                 dec_batch=MM_DEC_BATCH, dec_depth=MM_DEC_DEPTH, dec_steps=MM_DEC_STEPS)
     if reduced:
-        sizes.update(batch=4, seq=16, moe_batch=4)
-    return {"device": None if device is None else str(device), "reduced": reduced, **sizes}
+        sizes.update(batch=4, seq=16, moe_batch=4, dec_batch=4, dec_depth=16, dec_steps=6)
+    return {"device": None if device is None else str(device), "reduced": reduced, "parts": list(parts), **sizes}
+
+
+_HOST_PARAMS: dict = {}
+
+
+def _host_params(cfg) -> dict:
+    """``init_params(cfg, float32, "cpu", seed=0)``, kept for the next call
+    of the same weights (one tree at a time): (b) and (c) share deepseek's,
+    the oracles (b) and (c) theirs. The layout flags do not change what is
+    drawn, so they are not part of the key."""
+    from repro_torch.models import init_params
+
+    key = dataclasses.replace(cfg, sharding_profile="tp", expert_weight_stationary=False, max_seq_len=0)
+    if key not in _HOST_PARAMS:
+        _HOST_PARAMS.clear()
+        _HOST_PARAMS[key] = init_params(cfg, dtype=torch.float32, device="cpu", seed=0)
+    return _HOST_PARAMS[key]
+
+
+def _mm_decode_config(arch: str, setup: dict):
+    """(c)'s config of ``arch``: published width cut to ``MM_LAYERS`` layers
+    (reduced in a CPU rehearsal), with the profile and expert placement
+    ``resolve_config(arch, decode_32k)`` gives."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.input_specs import SHAPES, resolve_config
+
+    full = resolve_config(arch, SHAPES["decode_32k"])
+    base = reduced(get_config(arch)) if setup["reduced"] else dataclasses.replace(get_config(arch), n_layers=MM_LAYERS)
+    return dataclasses.replace(base, sharding_profile=full.sharding_profile,
+                               expert_weight_stationary=full.expert_weight_stationary)
+
+
+def _decode_shape(setup: dict):
+    from repro_torch.launch.input_specs import ShapeSpec
+
+    return ShapeSpec("decode_32k", setup["dec_depth"], setup["dec_batch"], "decode")
+
+
+def _capture_routes(routes: list, routers: list):
+    """Wraps ``blocks.moe`` to append, for each MoE layer a step runs, the
+    experts its tokens go to (top-k of the float32 softmax router) as
+    (first row, routes of this rank's rows) — on a mesh from the layer's
+    input rows this rank holds (whole along d_model), with ``routers`` (the
+    whole router of each MoE layer, in call order) gathered beforehand.
+    Returns the function that undoes it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import blocks
+    from repro_torch.models.sharding import split_offset
+
+    real = blocks.moe
+    calls = [0]
+
+    def moe(p, cfg, x):
+        first, x_rows = 0, x
+        if isinstance(x, DTensor):  # whole rows: a gather of the (B, 1, d) input where it is split off the batch
+            rows = x.redistribute(x.device_mesh, [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+                                                  for q in x.placements])
+            first, x_rows = split_offset(rows, 0)[1], rows.to_local()
+        router = routers[calls[0] % len(routers)]
+        calls[0] += 1
+        t = x_rows.reshape(-1, x_rows.shape[-1]).to(torch.float32)
+        top = torch.topk(torch.softmax(t @ router.to(device=t.device, dtype=torch.float32), dim=-1),
+                         cfg.moe.top_k, dim=-1)[1]
+        routes.append((first * x_rows.shape[1], top.cpu().numpy()))
+        return real(p, cfg, x)
+
+    blocks.moe = moe
+    return lambda: setattr(blocks, "moe", real)
+
+
+def _routers(cfg, params) -> list:
+    """The whole router of each MoE layer, in the order a step calls them."""
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for r in range(cfg.n_periods):
+        for spec, stacked in zip(cfg.period, params["layers"]):
+            if spec.ff == "moe":
+                t = stacked["router"]
+                out.append((t.full_tensor() if isinstance(t, DTensor) else t)[r])
+    return out
+
+
+def _decode_oracle(root: pathlib.Path, setup: dict, device) -> dict:
+    """(c)'s oracle, on the card in this process: each arch's single-device
+    decode of ``dec_steps`` steps from the same weights (seed 0) and ids;
+    its logits, ids and (MoE) routes saved under ``root``. Returns each
+    arch's decode tokens/s on one card."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_cache, init_params
+
+    root.mkdir()
+    rates = {}
+    B, depth, steps = setup["dec_batch"], setup["dec_depth"], setup["dec_steps"]
+    for arch in MM_DEC_ARCHS:
+        cfg = _mm_decode_config(arch, setup)
+        card = tree_map(lambda t: t.to(device), _host_params(cfg))
+        cache = init_cache(cfg, B, depth, torch.float32, device)
+        ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (steps, B, 1))
+        step = make_serve_step(cfg)
+        routes, logits = [], []
+        undo = _capture_routes(routes, _routers(cfg, card)) if cfg.moe is not None else (lambda: None)
+        try:
+            for s in range(steps):
+                out, cache = step(card, cache, torch.from_numpy(ids[s]).to(device))
+                logits.append(out.cpu().numpy())
+        finally:
+            undo()
+        # the single card's decode rate, without the route capture
+        cache = init_cache(cfg, B, depth, torch.float32, device)
+        _mm_sync(device)
+        t0 = time.perf_counter()
+        for s in range(steps):
+            out, cache = step(card, cache, torch.from_numpy(ids[s]).to(device))
+        _mm_sync(device)
+        rates[arch] = B * steps / (time.perf_counter() - t0)
+        np.save(root / f"{arch}.ids.npy", ids)
+        np.save(root / f"{arch}.logits.npy", np.stack(logits))
+        if routes:
+            np.save(root / f"{arch}.routes.npy", np.stack([top for _, top in routes]))
+        del card, cache, out
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rates
+
+
+def _mm_decode(out: pathlib.Path, setup: dict) -> dict:
+    """(c), on one rank: each arch decoded on the (2, 2) mesh from the
+    oracle's weights and ids. Per step: the gap of this rank's block of the
+    logits to the oracle's (max |Δ| over the oracle's max |logit|), the
+    routes of this rank's rows of each MoE layer, and whether every cache
+    leaf kept its placements; then one step on a fresh cache of the same
+    depth and one twice as deep, without the checks, their collectives
+    counted (kind, count, bytes: they must agree — nothing moves the
+    cache). Also the wall
+    of the steps without the checks, the local bytes of the parameters and
+    the cache, and the peak memory."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+
+    from repro_torch import resolve_device
+    from repro_torch._tree import path_key, tree_paths
+    from repro_torch.launch.input_specs import cache_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import count_collectives
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import distribute_params, init_cache, init_params, param_pspecs, sharding
+
+    device = resolve_device(setup["device"])
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    shape = _decode_shape(setup)
+    B, depth, steps = setup["dec_batch"], setup["dec_depth"], setup["dec_steps"]
+    res = {}
+    for arch in MM_DEC_ARCHS:
+        t_setup = time.perf_counter()
+        cfg = _mm_decode_config(arch, setup)
+        host = _host_params(cfg)
+        params = distribute_params(host, param_pspecs(cfg, host, mesh), mesh)
+        del host
+
+        def fresh_cache(d):
+            c = init_cache(cfg, B, d, torch.float32, device)
+            return distribute_params(c, cache_shardings(cfg, dataclasses.replace(shape, seq_len=d), mesh, c), mesh)
+
+        cache = fresh_cache(depth)
+        want = {path_key(p): list(map(str, t.placements)) for p, t in tree_paths(cache)}
+
+        def local_bytes(tree):
+            return sum((t.to_local() if isinstance(t, DTensor) else t).numel() * t.element_size()
+                       for _, t in tree_paths(tree))
+
+        param_bytes, cache_bytes = local_bytes(params), local_bytes(cache)
+        ids = np.load(out / "oracle_c" / f"{arch}.ids.npy")
+        oracle = np.load(out / "oracle_c" / f"{arch}.logits.npy", mmap_mode="r")
+        oracle_routes = np.load(out / "oracle_c" / f"{arch}.routes.npy") if cfg.moe is not None else None
+        step = make_serve_step(cfg)
+        routes, gaps, kept, step_s, counted = [], [], True, 0.0, {}
+        undo = _capture_routes(routes, _routers(cfg, params)) if cfg.moe is not None else (lambda: None)
+        setup_s = time.perf_counter() - t_setup
+        _mm_sync(device)
+        _mm_peak(device, reset=True)
+        try:
+            for s in range(steps):
+                tok = torch.from_numpy(ids[s]).to(device)
+                _mm_sync(device)
+                t0 = time.perf_counter()
+                with sharding.use_mesh(mesh):
+                    logits, cache = step(params, cache, tok)
+                _mm_sync(device)
+                step_s += time.perf_counter() - t0
+                if any(isinstance(q, Partial) for q in logits.placements):
+                    logits = logits.redistribute(mesh, [Replicate() if isinstance(q, Partial) else q
+                                                        for q in logits.placements])
+                mine = distribute_tensor(torch.from_numpy(np.array(oracle[s])), mesh, logits.placements,
+                                         src_data_rank=None).to_local()
+                gaps.append(float((logits.to_local() - mine).abs().max()) / float(np.abs(oracle[s]).max()))
+                kept &= all(isinstance(t, DTensor) and list(map(str, t.placements)) == want[path_key(p)]
+                            for p, t in tree_paths(cache))
+        finally:
+            undo()
+        peak = _mm_peak(device)
+        for d in (depth, 2 * depth):
+            with sharding.use_mesh(mesh), count_collectives() as stats:
+                step(params, fresh_cache(d), torch.from_numpy(ids[0]).to(device))
+            counted[d] = [stats.count_by_kind, stats.bytes_by_kind]
+        routes_equal = None
+        if routes:  # the i-th MoE call of the run, both sides; each rank checks its rows
+            routes_equal = len(routes) == len(oracle_routes) and all(
+                np.array_equal(top, oracle_routes[i][first:first + len(top)]) for i, (first, top) in enumerate(routes))
+        res[arch] = {"gaps": gaps, "kept": kept, "routes_equal": routes_equal,
+                     "step_s": step_s, "setup_s": setup_s, "tokens_per_s": B * steps / step_s,
+                     "param_bytes": param_bytes, "cache_bytes": cache_bytes, "max_memory_allocated": peak,
+                     "collectives": counted[depth], "collectives_2x": counted[2 * depth]}
+        del params, cache, logits
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def _mm_dryrun(setup: dict, decode: dict) -> dict:
+    """(d), on one rank: ``dryrun.run_combo`` of each of ``MM_DRY_ARCHS`` at
+    (c)'s decode shape and config on (c)'s (2, 2) mesh (fake tensors on this
+    rank's device: nothing moves), in float32 as (c) ran; the record beside
+    what (c) held and counted on this rank."""
+    from repro_torch import resolve_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    device = resolve_device(setup["device"])
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    res = {}
+    for arch in MM_DRY_ARCHS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_combo(arch, "decode_32k", mesh, device=device.type, cfg=_mm_decode_config(arch, setup),
+                               shape=_decode_shape(setup), dtype=torch.float32)
+        res[arch] = {"record": rec, "s": time.perf_counter() - t0, "real": {
+            k: decode[arch][k] for k in ("param_bytes", "cache_bytes", "max_memory_allocated", "collectives")}}
+    return res
+
+
+def dryrun_host(out: str, device_type: str) -> None:
+    """The full-width dry run in its own process (a spawned one, with no
+    process group): ``MM_HOST_DRY`` on the fake (16, 16) production mesh,
+    fake tensors on ``device_type``; the records written to ``out``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.set_num_threads(1)
+    recs = {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device=device_type)
+        for arch, shape in MM_HOST_DRY:
+            t0 = time.perf_counter()
+            recs[f"{arch}|{shape}"] = dryrun.run_combo(arch, shape, mesh, device=device_type)
+            recs[f"{arch}|{shape}"]["wall_s"] = time.perf_counter() - t0
+    pathlib.Path(out).write_text(json.dumps(recs))
 
 
 def _mm_configs(setup: dict):
@@ -1863,7 +2151,7 @@ def _mm_moe(out: pathlib.Path, setup: dict) -> dict:
     cfg = _mm_configs(setup)[1]
     device = resolve_device(setup["device"])
     mesh = make_mesh((2, 2), ("data", "model"), device=device)
-    host = init_params(cfg, dtype=torch.float32, device="cpu", seed=0)
+    host = _host_params(cfg)
     specs = param_pspecs(cfg, host, mesh)
     params = distribute_params(host, specs, mesh)
     del host
@@ -1913,8 +2201,8 @@ def _mm_moe(out: pathlib.Path, setup: dict) -> dict:
 
 
 def model_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, setup: dict) -> None:
-    """One rank of the model_mesh phase (a spawned process): (a) then (b);
-    writes its numbers under ``out``."""
+    """One rank of the model_mesh phase (a spawned process): the parts of
+    ``setup`` in order, (a) to (d); writes its numbers under ``out``."""
     import datetime
 
     import torch.distributed as dist
@@ -1927,11 +2215,15 @@ def model_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, s
     try:
         from repro_torch import resolve_device
 
-        res = {"device": str(resolve_device(setup["device"])), "hybrid": _mm_hybrid(pathlib.Path(out), setup)}
-        gc.collect()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        res["moe"] = _mm_moe(pathlib.Path(out), setup)
+        res = {"device": str(resolve_device(setup["device"]))}
+        parts = {"hybrid": lambda: _mm_hybrid(pathlib.Path(out), setup), "moe": lambda: _mm_moe(pathlib.Path(out), setup),
+                 "decode": lambda: _mm_decode(pathlib.Path(out), setup),
+                 "dryrun": lambda: _mm_dryrun(setup, res["decode"])}
+        for part in setup["parts"]:
+            res[part] = parts[part]()
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
         (pathlib.Path(out) / f"mm_rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1945,16 +2237,98 @@ def _save_leaves(root: pathlib.Path, tree) -> None:
         np.save(_leaf_file(root, path), t.detach().cpu().numpy())
 
 
+def _report_decode(ranks: list, single_rates: dict, setup: dict, where: str, smi: str) -> dict:
+    """(c)'s checks and numbers from the ranks' results."""
+    res = {}
+    for arch in MM_DEC_ARCHS:
+        dec = [r["decode"][arch] for r in ranks]
+        gaps = [max(d["gaps"][s] for d in dec) for s in range(setup["dec_steps"])]
+        routes_ok = dec[0]["routes_equal"]
+        # the routing first: other experts would explain any gap of the logits
+        check(all(d["routes_equal"] is not False for d in dec),
+              f"(c) {arch}: the mesh routed tokens to other experts than the single-device decode")
+        check(all(math.isfinite(g) for g in gaps) and max(gaps) <= ZOO_CPU_RTOL,
+              f"(c) {arch}: the mesh decode's logits are {max(gaps)} from the single-device decode's")
+        check(all(d["kept"] for d in dec), f"(c) {arch}: a cache leaf left its cache_shardings placements")
+        check(all(d["collectives"] == d["collectives_2x"] for d in dec),
+              f"(c) {arch}: a step's collectives change with the cache's depth: "
+              f"{dec[0]['collectives']} vs {dec[0]['collectives_2x']}")
+        rates = [d["tokens_per_s"] for d in dec]
+        log(f"[mmesh] (c) {arch} decode on (2, 2) (data, model), {where}: {setup['dec_steps']} serve steps of batch "
+            f"{setup['dec_batch']} against a {setup['dec_depth']}-deep cache; logits vs the single-device decode, worst "
+            f"step {max(gaps):.3g} (limit {ZOO_CPU_RTOL:g})" + ("" if routes_ok is None else ", routes equal")
+            + f"; cache placements kept; collectives a step {dec[0]['collectives'][0]} the same at twice the depth; "
+            f"{[round(x) for x in rates]} tokens/s a rank (one card alone {single_rates[arch]:.0f}; a correctness "
+            f"run: gloo carries CUDA tensors through the host); set-up {max(d['setup_s'] for d in dec):.1f} s, "
+            f"steps {max(d['step_s'] for d in dec):.1f} s; max_memory_allocated "
+            f"{[round(d['max_memory_allocated'] / 2**30, 3) for d in dec]} GiB — {smi}")
+        res[arch] = {"gap_worst": max(gaps), "gaps": gaps, "routes_equal": routes_ok, "placements_kept": True,
+                     "collectives_step": dec[0]["collectives"], "tokens_per_s": rates,
+                     "single_card_tokens_per_s": single_rates[arch], "setup_s": [d["setup_s"] for d in dec],
+                     "step_s": [d["step_s"] for d in dec],
+                     "max_memory_allocated": [d["max_memory_allocated"] for d in dec],
+                     "param_bytes": [d["param_bytes"] for d in dec], "cache_bytes": [d["cache_bytes"] for d in dec]}
+    return {"mesh": [2, 2], "axes": ["data", "model"], "layers": MM_LAYERS, "batch": setup["dec_batch"],
+            "cache_depth": setup["dec_depth"], "steps": setup["dec_steps"], "tol": ZOO_CPU_RTOL, "archs": res,
+            "note": "a correctness run, not a measurement of communication"}
+
+
+def _report_dryrun(ranks: list, host_recs: dict, setup: dict, smi: str) -> dict:
+    """(d)'s checks and numbers: each rank's dry-run record against what
+    (c) held and counted there; the host's full-width records."""
+    res = {}
+    for arch in MM_DRY_ARCHS:
+        rows = []
+        for r, rank in enumerate(ranks):
+            d = rank["dryrun"][arch]
+            rec, real = d["record"], d["real"]
+            check(rec["status"] == "ok", f"(d) {arch}: the dry run's status is {rec['status']}")
+            mem = rec["memory"]
+            check((mem["param_bytes"], mem["cache_bytes"]) == (real["param_bytes"], real["cache_bytes"]),
+                  f"(d) {arch} rank {r}: predicted parameter and cache bytes {mem['param_bytes']}, {mem['cache_bytes']}"
+                  f" vs the real shards' {real['param_bytes']}, {real['cache_bytes']}")
+            want = {k: v for k, v in real["collectives"][0].items() if v}
+            check(rec["roofline"]["collective_counts"] == want,
+                  f"(d) {arch} rank {r}: predicted collectives {rec['roofline']['collective_counts']} vs counted {want}")
+            rows.append({"param_bytes": mem["param_bytes"], "cache_bytes": mem["cache_bytes"],
+                         "predicted_peak": mem["peak_bytes"], "max_memory_allocated": real["max_memory_allocated"],
+                         "peak_ratio": real["max_memory_allocated"] / mem["peak_bytes"],
+                         "collective_counts": rec["roofline"]["collective_counts"], "s": d["s"]})
+        log(f"[mmesh] (d) {arch} dry run on (c)'s (2, 2) mesh and shape (fake tensors, float32): parameter and cache "
+            f"bytes a rank {rows[0]['param_bytes']} / {rows[0]['cache_bytes']} = the real shards'; collectives "
+            f"{rows[0]['collective_counts']} = a real step's; predicted peak "
+            f"{[round(x['predicted_peak'] / 2**30, 3) for x in rows]} GiB vs max_memory_allocated "
+            f"{[round(x['max_memory_allocated'] / 2**30, 3) for x in rows]} GiB (ratio "
+            f"{[round(x['peak_ratio'], 3) for x in rows]}; no limit) — {smi}")
+        res[arch] = rows
+    check(host_recs["exitcode"] == 0, f"(d) the host's dry run ended with {host_recs['exitcode']}")
+    host = {}
+    for key, rec in host_recs["recs"].items():
+        check(rec["status"] == "ok", f"(d) the host's dry run of {key}: {rec['status']}")
+        row = rec["roofline"]
+        log(f"[mmesh] (d) dry run {key} on the fake (16, 16) mesh, full depth, fake {rec['device']} tensors: "
+            f"PREDICTED against the H100 SXM's published peaks at 700 W (989 TFLOP/s bf16, 3.35 TB/s, 50 GB/s a GPU "
+            f"between nodes): compute {row['compute_s'] * 1e3:.3f} ms, memory {row['memory_s'] * 1e3:.3f} ms, "
+            f"collective {row['collective_s'] * 1e3:.3f} ms, dominant {row['dominant']}, useful {row['useful_ratio']:.3f}"
+            f", peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB a rank ({rec['wall_s']:.1f} s) — run on {smi}")
+        host[key] = {"roofline": row, "memory": rec["memory"], "depth_check": rec["depth_check"],
+                     "wall_s": rec["wall_s"]}
+    return {"ranks": res, "host": host, "note": "predictions against published peaks, not measurements"}
+
+
 def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None = None) -> dict:
     """The model mesh at published width, depth cut to ``MM_LAYERS``: the
     card-side oracles first, in this process (their results kept on the
     host, their memory freed), then ``MM_RANKS`` spawned processes in a
     ``ranks_backend`` group — gloo with CUDA tensors: four ranks on the one
     card; NCCL (``--mesh-nccl``): a card each — run (a) the hybrid-2D
-    trainer and (b) the expert-parallel MoE (``_mm_hybrid``, ``_mm_moe``).
-    ``setup``: ``_mm_setup()`` (the card, published widths) unless a CPU
-    rehearsal passes its own. Returns the numbers for the phase's JSON
-    line."""
+    trainer, (b) the expert-parallel MoE, (c) decode on a (2, 2) mesh and
+    (d) the dry run at (c)'s shape against what (c) held and counted
+    (``_mm_hybrid``, ``_mm_moe``, ``_mm_decode``, ``_mm_dryrun``; the parts
+    ``setup`` names), while (d)'s full-width dry run (``dryrun_host``) runs
+    beside them in a process of its own. ``setup``: ``_mm_setup()`` (the
+    card, published widths, every part) unless a caller passes its own.
+    Returns the numbers for the phase's JSON line."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -1970,6 +2344,7 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
     started = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for fp32 matmuls")
     setup = setup or _mm_setup()
+    parts = setup["parts"]
     device = resolve_device(setup["device"])
     qwen, deepseek, published = _mm_configs(setup)
     steps, batch, seq, tau, moe_batch = (setup[k] for k in ("steps", "batch", "seq", "tau", "moe_batch"))
@@ -1980,140 +2355,171 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
                    "host, and four processes share one card"}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        # (a)'s oracle: two pods, each its own parameters and adamw state, on
-        # its half of each global batch; the parameter mean every MM_TAU steps
-        t0 = time.perf_counter()
-        host = init_params(qwen, dtype=torch.float32, device="cpu", seed=0)
-        n_qwen = sum(t.numel() for t in tree_leaves(host))
-        opt = adamw(MM_LR)
-        step = make_train_step(qwen, opt)
-        states = []
-        for _ in range(2):
+        if "hybrid" in parts:
+            # (a)'s oracle: two pods, each its own parameters and adamw state, on
+            # its half of each global batch; the parameter mean every MM_TAU steps
+            t0 = time.perf_counter()
+            host = _host_params(qwen)
+            n_qwen = sum(t.numel() for t in tree_leaves(host))
+            opt = adamw(MM_LR)
+            step = make_train_step(qwen, opt)
+            states = []
+            for _ in range(2):
+                card = tree_map(lambda t: t.to(device), host)
+                states.append((card, opt.init(card)))
+            del host, card
+            it = MarkovTextStream(qwen.vocab_size, seed=0).batches(batch, seq)
+            half = batch // 2
+            oracle_losses = []
+            for k in range(steps):
+                toks, targs = next(it)
+                pod_losses = []
+                for p in range(2):
+                    pod_batch = (torch.from_numpy(toks[p * half:(p + 1) * half]).to(device),
+                                 torch.from_numpy(targs[p * half:(p + 1) * half]).to(device))
+                    states[p], loss = step(states[p], pod_batch)
+                    pod_losses.append(loss)
+                oracle_losses.append(float(torch.mean(torch.stack(pod_losses))))
+                if (k + 1) % tau == 0:
+                    mean = tree_map(lambda a, b: (a + b) / 2, states[0][0], states[1][0])
+                    states = [(mean, s) for _, s in states]
+            _save_leaves(tmp / "oracle_a", states[0][0])
+            del states, mean, step
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            oracle_a_s = time.perf_counter() - t0
+            log(f"[mmesh] oracle (a) on the card: qwen2.5-3b, 2 pods × {steps} steps, losses {oracle_losses} "
+                f"({oracle_a_s:.1f} s)")
+        if "moe" in parts:
+            # (b)'s oracle: the single-device step's loss and gradients
+            t0 = time.perf_counter()
+            host = _host_params(deepseek)
+            n_deepseek = sum(t.numel() for t in tree_leaves(host))
             card = tree_map(lambda t: t.to(device), host)
-            states.append((card, opt.init(card)))
-        del host, card
-        it = MarkovTextStream(qwen.vocab_size, seed=0).batches(batch, seq)
-        half = batch // 2
-        oracle_losses = []
-        for k in range(steps):
-            toks, targs = next(it)
-            pod_losses = []
-            for p in range(2):
-                pod_batch = (torch.from_numpy(toks[p * half:(p + 1) * half]).to(device),
-                             torch.from_numpy(targs[p * half:(p + 1) * half]).to(device))
-                states[p], loss = step(states[p], pod_batch)
-                pod_losses.append(loss)
-            oracle_losses.append(float(torch.mean(torch.stack(pod_losses))))
-            if (k + 1) % tau == 0:
-                mean = tree_map(lambda a, b: (a + b) / 2, states[0][0], states[1][0])
-                states = [(mean, s) for _, s in states]
-        _save_leaves(tmp / "oracle_a", states[0][0])
-        del states, mean, step
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        oracle_a_s = time.perf_counter() - t0
-        # (b)'s oracle: the single-device step's loss and gradients
+            del host
+            toks, targs = next(MarkovTextStream(deepseek.vocab_size, seed=0).batches(moe_batch, seq))
+            grads, _, loss = steps_train_step(deepseek, None, opt=_grad_optimizer())(
+                card, (), torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device))
+            oracle_b_loss = float(loss)
+            _save_leaves(tmp / "oracle_b", grads)
+            del card, grads, loss
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            oracle_b_s = time.perf_counter() - t0
+            log(f"[mmesh] oracle (b) on the card: deepseek-v2-lite-16b one step of {moe_batch} × {seq}, loss "
+                f"{oracle_b_loss:.7f} ({oracle_b_s:.1f} s)")
+        if "decode" in parts:
+            t0 = time.perf_counter()
+            single_rates = _decode_oracle(tmp / "oracle_c", setup, device)
+            oracle_c_s = time.perf_counter() - t0
+            log(f"[mmesh] oracle (c) on the card: {', '.join(MM_DEC_ARCHS)}, {setup['dec_steps']} decode steps of "
+                f"batch {setup['dec_batch']} against a {setup['dec_depth']}-deep cache ({oracle_c_s:.1f} s); one card "
+                f"{ {a: round(r) for a, r in single_rates.items()} } tokens/s")
+        # (d)'s full-width dry run on the host, beside the ranks
+        host_dry = None
+        if "dryrun" in parts:
+            host_dry = mp.get_context("spawn").Process(target=dryrun_host,
+                                                       args=(str(tmp / "host_dry.json"), device.type))
+            host_dry.start()
         t0 = time.perf_counter()
-        host = init_params(deepseek, dtype=torch.float32, device="cpu", seed=0)
-        n_deepseek = sum(t.numel() for t in tree_leaves(host))
-        card = tree_map(lambda t: t.to(device), host)
-        del host
-        toks, targs = next(MarkovTextStream(deepseek.vocab_size, seed=0).batches(moe_batch, seq))
-        grads, _, loss = steps_train_step(deepseek, None, opt=_grad_optimizer())(
-            card, (), torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device))
-        oracle_b_loss = float(loss)
-        _save_leaves(tmp / "oracle_b", grads)
-        del card, grads, loss
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        oracle_b_s = time.perf_counter() - t0
-        log(f"[mmesh] oracles on the card: (a) qwen2.5-3b, 2 pods × {steps} steps, losses {oracle_losses} "
-            f"({oracle_a_s:.1f} s); (b) deepseek-v2-lite-16b one step of {moe_batch} × {seq}, loss "
-            f"{oracle_b_loss:.7f} ({oracle_b_s:.1f} s)")
-
-        t0 = time.perf_counter()
-        mp.start_processes(model_mesh_rank, args=(MM_RANKS, str(tmp / "store"), str(tmp), ranks_backend, setup),
-                           nprocs=MM_RANKS, start_method="spawn", join=True)
+        try:
+            mp.start_processes(model_mesh_rank, args=(MM_RANKS, str(tmp / "store"), str(tmp), ranks_backend, setup),
+                               nprocs=MM_RANKS, start_method="spawn", join=True)
+        except BaseException:
+            if host_dry is not None:
+                host_dry.kill()
+            raise
         spawned_s = time.perf_counter() - t0
         ranks = [json.loads((tmp / f"mm_rank{r}.json").read_text()) for r in range(MM_RANKS)]
+        host_recs = None
+        if host_dry is not None:  # read after the ranks' numbers are reported
+            host_dry.join(timeout=900)
+            host_recs = {"exitcode": host_dry.exitcode, "recs": json.loads((tmp / "host_dry.json").read_text())
+                         if host_dry.exitcode == 0 else {}}
 
-    # (a) the hybrid-2D trainer
-    hyb = [r["hybrid"] for r in ranks]
-    losses = hyb[0]["losses"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle_losses))
-    gaps = {leaf: max(h["leaves"][leaf][0] for h in hyb) for leaf in hyb[0]["leaves"]}
-    worst = max(gaps, key=gaps.get)
-    param_gap, reach = gaps[worst], 2 * MM_LR * steps
-    param_mean = (sum(v[1] for h in hyb for v in h["leaves"].values())
-                  / sum(v[2] for h in hyb for v in h["leaves"].values()))
-    syncs = hyb[0]["syncs"]
-    log(f"[mmesh] (a) qwen2.5-3b (published width, {MM_LAYERS} of {published['qwen2.5-3b']} layers, "
-        f"{n_qwen / 1e6:.1f} M parameters) through train(mesh=...) on (2, 1, 2) (pod, data, model), {where}: "
-        f"{steps} adamw steps of {batch} × {seq} fp32 tokens, τ = {tau}: losses {losses} vs the FedAvg "
-        f"oracle's {oracle_losses} (worst relative {loss_rel:.3g}, limit {MM_LOSS_RTOL:g}); final parameters mean |Δ| "
-        f"{param_mean:.3g} (limit {MM_PARAM_MEAN_ATOL:g}), max |Δ| {param_gap:.3g} at {worst} (limit 2·lr·steps = "
-        f"{reach:.3g}); per sync: drift before "
-        f"{[s['drift_before'] for s in syncs]}, spread after {[s['spread_after'] for s in syncs]}, "
-        f"{[round(s['sync_ms'], 1) for s in syncs]} ms; {hyb[0]['tokens_per_s']:.0f} tokens/s "
-        f"({hyb[0]['tokens_per_s_without_checks']:.0f} without the drift checks); max_memory_allocated per rank "
-        f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in hyb]} GiB — {smi}")
-    check(all(h["losses"] == losses for h in hyb), "(a): the ranks report different losses")
-    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"(a): the losses are {losses}")
-    check(loss_rel <= MM_LOSS_RTOL, f"(a): the losses are {loss_rel} from the oracle's")
-    check(param_mean <= MM_PARAM_MEAN_ATOL, f"(a): the final parameters are {param_mean} from the oracle's on average")
-    check(param_gap <= reach, f"(a): the final {worst} is {param_gap} from the oracle's")
-    for h in hyb:
-        check(len(h["syncs"]) == steps // tau, f"(a): {len(h['syncs'])} syncs, expected {steps // tau}")
-        check(all(s["drift_before"] > 0 for s in h["syncs"]), f"(a): the pods did not drift before a sync: {h['syncs']}")
-        check(all(s["spread_after"] == 0 for s in h["syncs"]), f"(a): the pods differ after a sync: {h['syncs']}")
-    out["hybrid"] = {"arch": "qwen2.5-3b", "mesh": [2, 1, 2], "axes": ["pod", "data", "model"],
-                     "entry": "repro_torch.train.loop.train(mesh=...)", "layers": MM_LAYERS,
-                     "published_layers": published["qwen2.5-3b"],
-                     "reduced": [f"n_layers {published['qwen2.5-3b']} -> {MM_LAYERS}"], "params": n_qwen,
-                     "batch": batch, "seq_len": seq, "steps": steps, "tau": tau, "optimizer": f"adamw({MM_LR:g})",
-                     "losses": losses, "oracle_losses": oracle_losses, "loss_rel": loss_rel, "param_gap": param_gap,
-                     "param_gap_leaf": worst, "param_mean_gap": param_mean, "leaf_gaps": gaps, "syncs_rank0": syncs,
-                     "sync_ms": statistics.median(s["sync_ms"] for h in hyb for s in h["syncs"]),
-                     "tokens_per_s": hyb[0]["tokens_per_s"],
-                     "tokens_per_s_without_checks": hyb[0]["tokens_per_s_without_checks"],
-                     "max_memory_allocated": [h["max_memory_allocated"] for h in hyb], "oracle_s": oracle_a_s}
+    if "hybrid" in parts:
+        # (a) the hybrid-2D trainer
+        hyb = [r["hybrid"] for r in ranks]
+        losses = hyb[0]["losses"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle_losses))
+        gaps = {leaf: max(h["leaves"][leaf][0] for h in hyb) for leaf in hyb[0]["leaves"]}
+        worst = max(gaps, key=gaps.get)
+        param_gap, reach = gaps[worst], 2 * MM_LR * steps
+        param_mean = (sum(v[1] for h in hyb for v in h["leaves"].values())
+                      / sum(v[2] for h in hyb for v in h["leaves"].values()))
+        syncs = hyb[0]["syncs"]
+        log(f"[mmesh] (a) qwen2.5-3b (published width, {MM_LAYERS} of {published['qwen2.5-3b']} layers, "
+            f"{n_qwen / 1e6:.1f} M parameters) through train(mesh=...) on (2, 1, 2) (pod, data, model), {where}: "
+            f"{steps} adamw steps of {batch} × {seq} fp32 tokens, τ = {tau}: losses {losses} vs the FedAvg "
+            f"oracle's {oracle_losses} (worst relative {loss_rel:.3g}, limit {MM_LOSS_RTOL:g}); final parameters mean |Δ| "
+            f"{param_mean:.3g} (limit {MM_PARAM_MEAN_ATOL:g}), max |Δ| {param_gap:.3g} at {worst} (limit 2·lr·steps = "
+            f"{reach:.3g}); per sync: drift before "
+            f"{[s['drift_before'] for s in syncs]}, spread after {[s['spread_after'] for s in syncs]}, "
+            f"{[round(s['sync_ms'], 1) for s in syncs]} ms; {hyb[0]['tokens_per_s']:.0f} tokens/s "
+            f"({hyb[0]['tokens_per_s_without_checks']:.0f} without the drift checks); max_memory_allocated per rank "
+            f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in hyb]} GiB — {smi}")
+        check(all(h["losses"] == losses for h in hyb), "(a): the ranks report different losses")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"(a): the losses are {losses}")
+        check(loss_rel <= MM_LOSS_RTOL, f"(a): the losses are {loss_rel} from the oracle's")
+        check(param_mean <= MM_PARAM_MEAN_ATOL, f"(a): the final parameters are {param_mean} from the oracle's on average")
+        check(param_gap <= reach, f"(a): the final {worst} is {param_gap} from the oracle's")
+        for h in hyb:
+            check(len(h["syncs"]) == steps // tau, f"(a): {len(h['syncs'])} syncs, expected {steps // tau}")
+            check(all(s["drift_before"] > 0 for s in h["syncs"]), f"(a): the pods did not drift before a sync: {h['syncs']}")
+            check(all(s["spread_after"] == 0 for s in h["syncs"]), f"(a): the pods differ after a sync: {h['syncs']}")
+        out["hybrid"] = {"arch": "qwen2.5-3b", "mesh": [2, 1, 2], "axes": ["pod", "data", "model"],
+                         "entry": "repro_torch.train.loop.train(mesh=...)", "layers": MM_LAYERS,
+                         "published_layers": published["qwen2.5-3b"],
+                         "reduced": [f"n_layers {published['qwen2.5-3b']} -> {MM_LAYERS}"], "params": n_qwen,
+                         "batch": batch, "seq_len": seq, "steps": steps, "tau": tau, "optimizer": f"adamw({MM_LR:g})",
+                         "losses": losses, "oracle_losses": oracle_losses, "loss_rel": loss_rel, "param_gap": param_gap,
+                         "param_gap_leaf": worst, "param_mean_gap": param_mean, "leaf_gaps": gaps, "syncs_rank0": syncs,
+                         "sync_ms": statistics.median(s["sync_ms"] for h in hyb for s in h["syncs"]),
+                         "tokens_per_s": hyb[0]["tokens_per_s"],
+                         "tokens_per_s_without_checks": hyb[0]["tokens_per_s_without_checks"],
+                         "max_memory_allocated": [h["max_memory_allocated"] for h in hyb], "oracle_s": oracle_a_s}
 
-    # (b) the expert-parallel MoE
-    moe = [r["moe"] for r in ranks]
-    loss_b = moe[0]["loss"]
-    loss_b_rel = abs(loss_b - oracle_b_loss) / abs(oracle_b_loss)
-    grad_rel = {leaf: max(m["leaves"][leaf][0] for m in moe) / max(max(m["leaves"][leaf][1] for m in moe), 1e-30)
-                for leaf in moe[0]["leaves"]}
-    worst = max(grad_rel, key=grad_rel.get)
+    if "moe" in parts:
+        # (b) the expert-parallel MoE
+        moe = [r["moe"] for r in ranks]
+        loss_b = moe[0]["loss"]
+        loss_b_rel = abs(loss_b - oracle_b_loss) / abs(oracle_b_loss)
+        grad_rel = {leaf: max(m["leaves"][leaf][0] for m in moe) / max(max(m["leaves"][leaf][1] for m in moe), 1e-30)
+                    for leaf in moe[0]["leaves"]}
+        worst = max(grad_rel, key=grad_rel.get)
 
-    def share(key):
-        routed = sum(m["copies"][key]["routed"] for m in moe)
-        return sum(m["copies"][key]["dropped"] for m in moe) / max(routed, 1)
+        def share(key):
+            routed = sum(m["copies"][key]["routed"] for m in moe)
+            return sum(m["copies"][key]["dropped"] for m in moe) / max(routed, 1)
 
-    shares = {key: share(key) for key in ("cf8", "cf2", "cf1")}
-    log(f"[mmesh] (b) deepseek-v2-lite-16b (published width, 64 experts top-6, {MM_LAYERS} of "
-        f"{published['deepseek-v2-lite-16b']} layers, {n_deepseek / 1e9:.3f} B parameters) on (2, 2) (data, model), "
-        f"{where}: one launch/steps.make_train_step step of {moe_batch} × {seq} at cf = 8: loss {loss_b:.7f} vs "
-        f"the single-device step's {oracle_b_loss:.7f} (relative {loss_b_rel:.3g}, limit {ZOO_CPU_RTOL:g}); gradients, "
-        f"worst leaf {worst} {grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves; dropped "
-        f"copies {shares}; the step {moe[0]['step_s']:.2f} s ({moe[0]['tokens_per_s']:.0f} tokens/s); all_to_all of "
-        f"{moe[0]['all_to_all_bytes'] / 2**20:.1f} MiB over 'model' {[round(m['all_to_all_ms'], 2) for m in moe]} ms; "
-        f"max_memory_allocated per rank {[round(m['max_memory_allocated'] / 2**30, 2) for m in moe]} GiB — {smi}")
-    check(math.isfinite(loss_b) and loss_b_rel <= ZOO_CPU_RTOL, f"(b): the loss is {loss_b_rel} from the oracle's")
-    check(grad_rel[worst] <= ZOO_GRAD_RTOL, f"(b): the gradient of {worst} is {grad_rel[worst]} from the oracle's")
-    check(shares["cf8"] == 0.0, f"(b): copies dropped at cf = 8: {shares}")
-    check(all(m["copies"]["cf8"]["routed"] > 0 for m in moe), "(b): a rank routed no copy through moe_ep")
-    out["moe"] = {"arch": "deepseek-v2-lite-16b", "mesh": [2, 2], "axes": ["data", "model"],
-                  "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, ...)", "layers": MM_LAYERS,
-                  "published_layers": published["deepseek-v2-lite-16b"],
-                  "reduced": [f"n_layers {published['deepseek-v2-lite-16b']} -> {MM_LAYERS}"], "params": n_deepseek,
-                  "batch": moe_batch, "seq_len": seq, "cf": 8.0, "loss": loss_b, "oracle_loss": oracle_b_loss,
-                  "loss_rel": loss_b_rel, "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst,
-                  "dropped_share": shares, "step_s": moe[0]["step_s"], "tokens_per_s": moe[0]["tokens_per_s"],
-                  "all_to_all_ms": [m["all_to_all_ms"] for m in moe], "all_to_all_bytes": moe[0]["all_to_all_bytes"],
-                  "max_memory_allocated": [m["max_memory_allocated"] for m in moe], "oracle_s": oracle_b_s}
+        shares = {key: share(key) for key in ("cf8", "cf2", "cf1")}
+        log(f"[mmesh] (b) deepseek-v2-lite-16b (published width, 64 experts top-6, {MM_LAYERS} of "
+            f"{published['deepseek-v2-lite-16b']} layers, {n_deepseek / 1e9:.3f} B parameters) on (2, 2) (data, model), "
+            f"{where}: one launch/steps.make_train_step step of {moe_batch} × {seq} at cf = 8: loss {loss_b:.7f} vs "
+            f"the single-device step's {oracle_b_loss:.7f} (relative {loss_b_rel:.3g}, limit {ZOO_CPU_RTOL:g}); gradients, "
+            f"worst leaf {worst} {grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves; dropped "
+            f"copies {shares}; the step {moe[0]['step_s']:.2f} s ({moe[0]['tokens_per_s']:.0f} tokens/s); all_to_all of "
+            f"{moe[0]['all_to_all_bytes'] / 2**20:.1f} MiB over 'model' {[round(m['all_to_all_ms'], 2) for m in moe]} ms; "
+            f"max_memory_allocated per rank {[round(m['max_memory_allocated'] / 2**30, 2) for m in moe]} GiB — {smi}")
+        check(math.isfinite(loss_b) and loss_b_rel <= ZOO_CPU_RTOL, f"(b): the loss is {loss_b_rel} from the oracle's")
+        check(grad_rel[worst] <= ZOO_GRAD_RTOL, f"(b): the gradient of {worst} is {grad_rel[worst]} from the oracle's")
+        check(shares["cf8"] == 0.0, f"(b): copies dropped at cf = 8: {shares}")
+        check(all(m["copies"]["cf8"]["routed"] > 0 for m in moe), "(b): a rank routed no copy through moe_ep")
+        out["moe"] = {"arch": "deepseek-v2-lite-16b", "mesh": [2, 2], "axes": ["data", "model"],
+                      "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, ...)", "layers": MM_LAYERS,
+                      "published_layers": published["deepseek-v2-lite-16b"],
+                      "reduced": [f"n_layers {published['deepseek-v2-lite-16b']} -> {MM_LAYERS}"], "params": n_deepseek,
+                      "batch": moe_batch, "seq_len": seq, "cf": 8.0, "loss": loss_b, "oracle_loss": oracle_b_loss,
+                      "loss_rel": loss_b_rel, "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst,
+                      "dropped_share": shares, "step_s": moe[0]["step_s"], "tokens_per_s": moe[0]["tokens_per_s"],
+                      "all_to_all_ms": [m["all_to_all_ms"] for m in moe], "all_to_all_bytes": moe[0]["all_to_all_bytes"],
+                      "max_memory_allocated": [m["max_memory_allocated"] for m in moe], "oracle_s": oracle_b_s}
+    if "decode" in parts:
+        out["decode"] = _report_decode(ranks, single_rates, setup, where, smi)
+    if "dryrun" in parts:
+        out["dryrun"] = _report_dryrun(ranks, host_recs, setup, smi)
     out["devices"] = sorted({r["device"] for r in ranks})
     out["spawned_s"] = spawned_s
     out["phase_s"] = time.perf_counter() - started
@@ -2417,12 +2823,14 @@ def main() -> None:
         print(json.dumps({"zoo": zoo}), flush=True)
         device_line()
         return
-    if "--model-mesh" in sys.argv[1:]:
-        model_mesh = model_mesh_phase(smi)
-        print(smi, flush=True)
-        print(json.dumps({"model_mesh": model_mesh}), flush=True)
-        device_line()
-        return
+    alone = {"--model-mesh": MM_PARTS, "--decode-mesh": ("decode",), "--dryrun": ("decode", "dryrun")}
+    for flag, parts in alone.items():
+        if flag in sys.argv[1:]:
+            model_mesh = model_mesh_phase(smi, setup=_mm_setup(parts=parts))
+            print(smi, flush=True)
+            print(json.dumps({"model_mesh": model_mesh}), flush=True)
+            device_line()
+            return
 
     from repro_torch.core import engine
     from repro_torch.core.comm import time_phase

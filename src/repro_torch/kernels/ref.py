@@ -1,8 +1,25 @@
-"""Plain-torch oracles for the bundle kernels (allclose-tested)."""
+"""Plain-torch oracles for the kernels (allclose-tested): the reference's
+``repro.kernels.ref``, the blocked-layout BSR products included."""
 
 from __future__ import annotations
 
 import torch
+
+
+def bsr_matmat_ref(tiles: torch.Tensor, block_cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X via a dense gather-einsum on the blocked layout
+    (``sparse/bsr.py``): tiles (n_brows, max_blocks, bm, bn), block_cols
+    (n_brows, max_blocks), X (n_bcols·bn, k)."""
+    n_brows, max_blocks, bm, bn = tiles.shape
+    k = x.shape[1]
+    x_blocked = x.reshape(-1, bn, k)
+    gathered = x_blocked[block_cols.long()]  # (nbr, maxb, bn, k)
+    y = torch.einsum("rjab,rjbk->rak", tiles, gathered)
+    return y.reshape(n_brows * bm, k)
+
+
+def bsr_matvec_ref(tiles: torch.Tensor, block_cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return bsr_matmat_ref(tiles, block_cols, x[:, None])[:, 0]
 
 
 def gram_tril_ref(y: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,22 @@
-"""Bounds of the bundle (G, v) build on an NVIDIA H100 — the panel half of
-the reference's roofline module.
+"""Roofline models on an NVIDIA H100: the language-model dry run's terms
+and the bundle (G, v) build's bounds — the reference's roofline module.
 
-Two models live here:
+Three models live here:
 
+* the **dry-run terms** (``RooflineTerms``, ``extrapolate_depth``,
+  ``model_flops_per_step``, ``CollectiveStats``, ``count_collectives``): per
+  (arch × shape × mesh), from one rank's counts of the real step
+  (``launch/dryrun.py``),
+
+    compute term    = FLOPs a rank / PEAK_FLOPS_BF16
+    memory term     = HBM bytes a rank / HBM_BW
+    collective term = collective bytes a rank / LINK_BW
+
+  ``model_flops_per_step`` is 6·N·D (train) or 2·N·D (inference) with N the
+  active parameters less the input embedding, as the reference counts it;
+  its ratio to the counted FLOPs is the useful share. The reference reads
+  its collectives from XLA's HLO text; the port has no HLO, and
+  ``count_collectives`` counts the collectives a step issues instead.
 * the **panel model** (``panel_vmem_bytes``, ``panel_flops``,
   ``panel_hbm_bytes``, ``PanelRoofline``, ``panel_roofline``): the
   reference's count of a (bk, bm) panel walk — the plain
@@ -19,31 +33,224 @@ Two models live here:
   rate. The card's autotuner cross-checks its (tile, ks) timings with it,
   and ``chip_smoke.py`` reports it as each Gram row's ``bound_ms``.
 
-Rates: the H100 SXM's published peaks — 3.35 TB/s HBM3, 67 TFLOP/s fp32
-outside the tensor cores (the kernel is fp32 FMA in both modes: a bf16
-product is exact in fp32), 989 TFLOP/s bf16 dense on the tensor cores
-(the bf16 panel of the plain walk is a matmul). The fit check is the
-kernel's dynamic shared memory a block, ``SMEM_LIMIT``.
-
-The model half of the reference's module (HLO collective parsing, the
-dry-run roofline terms, model FLOPs, depth extrapolation) reads XLA's
-compiled text and waits for the language-model dry run (ROADMAP.md Queue 1
-item 13d).
+Rates: the H100 SXM's published peaks (NVIDIA's H100 data sheet) — 80 GB
+HBM3 at 3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores (the Gram
+kernel is fp32 FMA in both modes: a bf16 product is exact in fp32), 989
+TFLOP/s bf16 dense on the tensor cores (the bf16 panel of the plain walk
+is a matmul; the dry run's compute term). The collective term uses the
+**inter-node** rate, one ConnectX-7 NDR InfiniBand link a GPU, 400 Gb/s =
+50 GB/s (``LINK_BW``): the production meshes (16, 16) and (2, 16, 16) span
+32 and 64 eight-GPU HGX nodes, so both mesh axes cross nodes. NVLink 4's
+900 GB/s a GPU (both directions) is ``NVLINK_BW``, the rate inside a node.
+The Gram fit check is the kernel's dynamic shared memory a block,
+``SMEM_LIMIT``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels.ell_gram import SMEM_LIMIT
 
 # NVIDIA H100 SXM, published peaks (one card)
 HBM_BW = 3.35e12  # B/s
+HBM_BYTES = 80e9  # HBM3 capacity
 PEAK_FLOPS_FP32 = 67e12  # FMA units, no tensor cores
 PEAK_FLOPS_BF16 = 989e12  # tensor cores, dense
 SMEM_BYTES = SMEM_LIMIT  # dynamic shared memory a block may use (sm_90)
+LINK_BW = 400e9 / 8  # B/s a GPU between nodes: one ConnectX-7 NDR link, 400 Gb/s
+NVLINK_BW = 900e9  # B/s a GPU inside a node, NVLink 4, both directions
+
+_DTYPE_BYTES = {
+    "f64": 8, "f32": 4, "bf16": 2, "f16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
+    "s64": 8, "u64": 8, "s32": 4, "u32": 4, "s16": 2, "u16": 2,
+    "s8": 1, "u8": 1, "pred": 1, "c64": 8, "c128": 16,
+}
+
+COLLECTIVE_KINDS = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+
+
+# ---- the dry run's collectives ----
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    bytes_by_kind: dict[str, int]
+    count_by_kind: dict[str, int]
+    in_while_body: bool  # the reference's flag; an eager step has no loop body
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+
+# the collective ops a step can issue: DTensor's functional ones and the
+# c10d ones (moe_ep's all_to_all and gathers, the plain all-gather that
+# launch/mesh.py installs), by op name
+_KIND_OF = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce", "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute", "broadcast": "collective-permute",
+    "broadcast_": "collective-permute",
+}
+# bookkeeping ops of the same namespaces: no data moves between ranks
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "barrier", "monitored_barrier_"}
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+class _CollectiveCounter(TorchDispatchMode):
+    def __init__(self, stats: CollectiveStats, log: list | None):
+        super().__init__()
+        self.stats, self.log = stats, log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t is DTensor for t in types):
+            # DTensor runs first and issues its collectives, which come back here
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in ("_c10d_functional", "c10d"):
+            name = func._opname
+            if name not in _NOT_COLLECTIVES:
+                kind = _KIND_OF.get(name)
+                if kind is None:
+                    raise ValueError(f"count_collectives does not know the collective {func}")
+                # the output buffer's bytes, as the reference reads an HLO
+                # collective's result shape: the functional ops return it,
+                # the c10d ones write it into their first argument
+                nbytes = _nbytes(out if func.namespace == "_c10d_functional" else args[0])
+                self.stats.bytes_by_kind[kind] += nbytes
+                self.stats.count_by_kind[kind] += 1
+                if self.log is not None:
+                    self.log.append((kind, nbytes))
+        return out
+
+
+@contextlib.contextmanager
+def count_collectives(log: list | None = None):
+    """Counts the collectives this process issues inside the block, by kind,
+    with the bytes of each one's output buffer on this rank (the reference
+    counts an HLO collective's result shape the same way): yields the
+    ``CollectiveStats``, filled as the block runs. ``log``, if given, gets
+    one (kind, bytes) a collective, in order. Sees DTensor's functional
+    collectives and ``torch.distributed``'s own calls, on real and fake
+    tensors alike; a collective it does not know raises ``ValueError``."""
+    stats = CollectiveStats({k: 0 for k in COLLECTIVE_KINDS}, {k: 0 for k in COLLECTIVE_KINDS}, False)
+    with _CollectiveCounter(stats, log):
+        yield stats
+
+
+# ---- the dry run's terms ----
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    arch: str
+    shape: str
+    mesh: str
+    flops: float  # a rank, full depth
+    hbm_bytes: float
+    collective_bytes: float
+    collective_breakdown: dict[str, int]
+    model_flops: float  # 6·N_active·D (global) / ranks
+    peak_flops: float = PEAK_FLOPS_BF16
+    hbm_bw: float = HBM_BW
+    link_bw: float = LINK_BW
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / self.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / self.hbm_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / self.link_bw
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    @property
+    def bound_s(self) -> float:
+        """Roofline lower bound on step time (max of the three terms)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch,
+            "shape": self.shape,
+            "mesh": self.mesh,
+            "flops_per_dev": self.flops,
+            "hbm_bytes_per_dev": self.hbm_bytes,
+            "collective_bytes_per_dev": self.collective_bytes,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "model_flops_per_dev": self.model_flops,
+            "useful_ratio": self.useful_flops_ratio,
+            "collectives": self.collective_breakdown,
+        }
+
+
+def extrapolate_depth(v1: float, v2: float, n_periods: int) -> float:
+    """cost(P) = base + P·per_period, measured at P=1 and P=2."""
+    per = max(v2 - v1, 0.0)
+    base = max(v1 - per, 0.0)
+    return base + n_periods * per
+
+
+def model_flops_per_step(cfg, shape, kind: str) -> float:
+    """6·N_active·D global model FLOPs for the step (3 matmul passes
+    fwd+bwd for train; 2·N·D for inference forward)."""
+    n_active = cfg.active_param_count() - cfg.vocab_size * cfg.d_model * (
+        0 if cfg.tie_embeddings else 1
+    )  # lm_head counted once below; embedding lookup is a gather
+    if kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    tokens = shape.global_batch  # decode: 1 token/seq
+    return 2.0 * n_active * tokens
 
 
 # ---- the panel model (the plain walk's count) ----

@@ -10,7 +10,8 @@ single-token decode form threading an explicit cache or state (what
 Plain PyTorch ops (einsum, softmax, a loop of matmuls) written as the
 reference's ``repro.models.blocks`` writes them, so the two agree to
 float32 rounding: the same einsum contractions, the mask fill
-``finfo(float32).min`` on the flat paths and ``-1e30`` on the
+``finfo(float32).min`` on the flat paths (into float32 scores: ``jnp.where``
+promotes bfloat16 scores against that float32 scalar) and ``-1e30`` on the
 query-chunked one, softmax in float32, half-split (not interleaved) RoPE,
 the tanh-approximated GELU (``jax.nn.gelu``'s default), softplus as
 ``logaddexp(x, 0)`` (``jax.nn.softplus``; ``F.softplus`` returns x above
@@ -36,7 +37,21 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ArchConfig, LayerSpec
-from repro_torch.models.sharding import get_abstract_mesh, like, local_region, mesh_sizes, shard
+from repro_torch.models.sharding import (
+    flatten, gathered, get_abstract_mesh, like, local_region, mesh_sizes, shard, split_offset, unflatten,
+    write_slot,
+)
+
+
+def _w(p, name: str, x):
+    """Layer weight ``name`` as a matmul with the activation ``x`` reads it:
+    on a mesh, its FSDP split gathered where the weight is the smaller of
+    the two (``sharding.gathered``)."""
+    return gathered(p[name], x)
+
+
+def _mm(x, p, name: str):
+    return x @ _w(p, name, x)
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -71,20 +86,65 @@ def _sdpa(q, k, v, mask, scale, kv_seq_sharded: bool = False) -> torch.Tensor:
     """Grouped-query attention without repeating the KV heads (the decode
     path): q (B, S, H, D); k/v (B, L, KV, D) with H = KV·G.
     ``kv_seq_sharded``: the scores' L dim keeps the cache's "model"
-    sharding."""
+    sharding — on a DTensor cache, each rank scores its block of it
+    (``_seq_parallel_attend``; ``mask`` holds one token's (L,) mask)."""
     B, S, H, D = q.shape
     KV = k.shape[2]
+    if kv_seq_sharded and isinstance(k, DTensor):
+        def scores(q, k, v):
+            return torch.einsum("bskgd,blkd->bkgsl", q.reshape(q.shape[0], S, KV, H // KV, D), k) * scale
+
+        def values(probs, k, v):
+            return torch.einsum("bkgsl,blkd->bskgd", probs, v).reshape(probs.shape[0], S, H, D)
+
+        return _seq_parallel_attend(scores, values, (q,), (k, v), mask.reshape(-1), q.dtype)
     q5 = q.reshape(B, S, KV, H // KV, D)
     logits = torch.einsum("bskgd,blkd->bkgsl", q5, k) * scale
     seq = "cache_seq" if kv_seq_sharded else None
     if kv_seq_sharded or PIN_SCORE_BATCH:
         logits = shard(logits, "batch", None, None, None, seq)
-    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    logits = torch.where(mask, logits.to(torch.float32), torch.finfo(torch.float32).min)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     if kv_seq_sharded or PIN_SCORE_BATCH:
         probs = shard(probs, "batch", None, None, None, seq)
     out = torch.einsum("bkgsl,blkd->bskgd", probs, v)
     return out.reshape(B, S, H, D)
+
+
+def _seq_parallel_attend(scores, values, queries, caches, valid, dtype):
+    """Softmax attention of one token against a decode cache laid out as
+    ``cache_shardings`` lays it: batch split over (pod, data), the cache's
+    sequence dim (dim 1 of every cache) split over "model". Each rank scores
+    its own block of the cache; the softmax's max and sum, and the weighted
+    values, are summed over the ranks that split the sequence (three
+    all-reduces of a query's size). No collective of the cache's size runs.
+
+    ``scores(*queries, *caches)`` → scaled logits (..., L_block);
+    ``values(probs, *caches)`` → the output; ``queries`` (batch dim 0) are
+    laid out with the cache's batch split and replicated elsewhere;
+    ``valid`` (L,) is the whole mask, sliced to the rank's block. Returns a
+    DTensor laid out as the queries."""
+    import torch.distributed._functional_collectives as funcol
+
+    ref = caches[0]
+    mesh = ref.device_mesh
+    split, off = split_offset(ref, 1)
+    lay = [Shard(0) if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in ref.placements]
+    q_loc = [like(q, ref).redistribute(mesh, lay).to_local() for q in queries]
+    c_loc = [c.to_local() for c in caches]
+    n = c_loc[0].shape[1]
+    logits = scores(*q_loc, *c_loc).to(torch.float32)
+    logits = torch.where(valid[off:off + n], logits, torch.finfo(torch.float32).min)
+
+    def over_seq(t, op):
+        for i in split:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    top = over_seq(torch.amax(logits, dim=-1, keepdim=True), "max")
+    e = torch.exp(logits - top)
+    probs = (e / over_seq(torch.sum(e, dim=-1, keepdim=True), "sum")).to(dtype)
+    return DTensor.from_local(over_seq(values(probs, *c_loc), "sum"), mesh, lay, run_check=False)
 
 
 def _repeat_kv_flat(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -101,7 +161,7 @@ def _sdpa_flat(q, k, v, mask, scale) -> torch.Tensor:
     (B, H, S, L), masked entries set to the float32 minimum."""
     logits = torch.einsum("bshd,blhd->bhsl", q, k) * scale
     logits = shard(logits, "batch", "heads", None, None)
-    logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    logits = torch.where(mask, logits.to(torch.float32), torch.finfo(torch.float32).min)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
     probs = shard(probs, "batch", "heads", None, None)
     return torch.einsum("bhsl,blhd->bshd", probs, v)
@@ -144,13 +204,13 @@ def attn_train(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Te
     """Full-sequence causal attention (training / prefill)."""
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, D))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].reshape(cfg.d_model, KV, D))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].reshape(cfg.d_model, KV, D))
+    q = unflatten(_mm(x, p, "wq"), -1, (H, D))
+    k = unflatten(_mm(x, p, "wk"), -1, (KV, D))
+    v = unflatten(_mm(x, p, "wv"), -1, (KV, D))
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, D)
-        k = k + p["bk"].reshape(KV, D)
-        v = v + p["bv"].reshape(KV, D)
+        q = q + unflatten(p["bq"], 0, (H, D))
+        k = k + unflatten(p["bk"], 0, (KV, D))
+        v = v + unflatten(p["bv"], 0, (KV, D))
     pos = torch.arange(S, device=x.device)
     cos, sin = (like(t, q) for t in rope_frequencies(D, cfg.rope_theta, pos))
     q = apply_rope(q, cos, sin)
@@ -172,7 +232,7 @@ def attn_train(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Te
             causal &= pos[:, None] - pos[None, :] < window
         out = local_region(lambda q, k, v: _sdpa_flat(q, k, v, causal[None, None], D**-0.5),
                            (q, heads), (kr, heads), (vr, heads))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
+    return _mm(flatten(out, 2), p, "wo")
 
 
 def init_attn_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int, dtype, device=None):
@@ -195,22 +255,24 @@ def attn_decode(p, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor, cache, pos
     reference's semantics)."""
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     L = cache["k"].shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, D))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].reshape(cfg.d_model, KV, D))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].reshape(cfg.d_model, KV, D))
+    q = unflatten(_mm(x, p, "wq"), -1, (H, D))
+    k = unflatten(_mm(x, p, "wk"), -1, (KV, D))
+    v = unflatten(_mm(x, p, "wv"), -1, (KV, D))
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, D)
-        k = k + p["bk"].reshape(KV, D)
-        v = v + p["bv"].reshape(KV, D)
-    cos, sin = rope_frequencies(D, cfg.rope_theta, pos.reshape(1))
+        q = q + unflatten(p["bq"], 0, (H, D))
+        k = k + unflatten(p["bk"], 0, (KV, D))
+        v = v + unflatten(p["bv"], 0, (KV, D))
+    cos, sin = (like(t, q) for t in rope_frequencies(D, cfg.rope_theta, pos.reshape(1)))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = torch.remainder(pos, L).reshape(1).long()
-    ck = shard(cache["k"].index_copy(1, slot, k), "batch", "cache_seq", None, None)
-    cv = shard(cache["v"].index_copy(1, slot, v), "batch", "cache_seq", None, None)
-    valid = (torch.arange(L, device=x.device) <= slot) | (pos >= L)
+    valid = (torch.arange(L, device=pos.device) <= slot) | (pos >= L)
+    # on a mesh the cache keeps its layout (batch over (pod, data), seq over
+    # "model") whatever the profile: the write and the scores run on each
+    # rank's block of it
+    ck, cv = write_slot(cache["k"], 1, slot, k), write_slot(cache["v"], 1, slot, v)
     out = _sdpa(q, ck, cv, valid[None, None, None, None, :], D**-0.5, kv_seq_sharded=True)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, D, cfg.d_model))
+    y = _mm(flatten(out, 2), p, "wo")
     return y, {"k": ck, "v": cv}
 
 
@@ -221,12 +283,12 @@ def _mla_qkv(p, cfg: ArchConfig, x, positions):
     m = cfg.mla
     H = cfg.n_heads
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].reshape(cfg.d_model, H, qd))
+    q = unflatten(_mm(x, p, "wq"), -1, (H, qd))
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     cos, sin = (like(t, q) for t in rope_frequencies(m.qk_rope_head_dim, cfg.rope_theta, positions))
     q_rope = apply_rope(q_rope, cos, sin)
-    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])  # (B, S, lora)
-    k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"])  # one rope key shared by the heads
+    ckv = torch.einsum("bsd,dr->bsr", x, _w(p, "w_dkv", x))  # (B, S, lora)
+    k_rope = torch.einsum("bsd,dk->bsk", x, _w(p, "w_kr", x))  # one rope key shared by the heads
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
     return q_nope, q_rope, ckv, k_rope
 
@@ -239,7 +301,7 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, mask, kv_seq_sh
     sharding (decode)."""
     m = cfg.mla
     H = cfg.n_heads
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    w_uk = unflatten(_w(p, "w_uk", q_nope), 1, (H, m.qk_nope_head_dim))
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)  # q̃ = q_nope · W_UKᵀ
     pin = ("batch", None, None, "cache_seq") if kv_seq_sharded else ("batch", None, None, None)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
@@ -249,19 +311,28 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, mask, kv_seq_sh
         logits = logits + torch.einsum("bshk,blk->bhsl", q_rope, k_rope)
         if kv_seq_sharded or PIN_SCORE_BATCH:
             logits = shard(logits, *pin)
-        logits = torch.where(mask, logits * scale, torch.finfo(torch.float32).min)
+        logits = torch.where(mask, (logits * scale).to(torch.float32), torch.finfo(torch.float32).min)
         probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q_nope.dtype)
         if kv_seq_sharded or PIN_SCORE_BATCH:
             probs = shard(probs, *pin)
         return torch.einsum("bhsl,blr->bshr", probs, ckv)  # the context in the lora space
 
-    # a region of this rank's batch block, its scores' heads replicated as
-    # the reference's pin lays them out (its einsums split two batch dims)
-    q_dims, kv_dims = ("batch", None, None, None), ("batch", None, None)
-    ctx = local_region(scores, (q_lat, q_dims), (q_rope, q_dims), (ckv, kv_dims), (k_rope, kv_dims))
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    if kv_seq_sharded and isinstance(ckv, DTensor):
+        # decode on a mesh: the latent cache keeps its layout, each rank
+        # scores its block of it (``mask`` holds one token's (L,) mask)
+        ctx = _seq_parallel_attend(
+            lambda q_lat, q_rope, ckv, k_rope: (torch.einsum("bshr,blr->bhsl", q_lat, ckv)
+                                                + torch.einsum("bshk,blk->bhsl", q_rope, k_rope)) * scale,
+            lambda probs, ckv, k_rope: torch.einsum("bhsl,blr->bshr", probs, ckv),
+            (q_lat, q_rope), (ckv, k_rope), mask.reshape(-1), q_nope.dtype)
+    else:
+        # a region of this rank's batch block, its scores' heads replicated as
+        # the reference's pin lays them out (its einsums split two batch dims)
+        q_dims, kv_dims = ("batch", None, None, None), ("batch", None, None)
+        ctx = local_region(scores, (q_lat, q_dims), (q_rope, q_dims), (ckv, kv_dims), (k_rope, kv_dims))
+    w_uv = unflatten(_w(p, "w_uv", ctx), 1, (H, m.v_head_dim))
     out = torch.einsum("bshr,rhk->bshk", ctx, w_uv)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].reshape(H, m.v_head_dim, cfg.d_model))
+    return _mm(flatten(out, 2), p, "wo")
 
 
 def _mla_attend_chunked(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope, q_chunk: int = ATTN_Q_CHUNK):
@@ -304,9 +375,8 @@ def mla_decode(p, cfg: ArchConfig, spec: LayerSpec, x, cache, pos):
     q_nope, q_rope, ckv_new, kr_new = _mla_qkv(p, cfg, x, pos.reshape(1))
     L = cache["ckv"].shape[1]
     slot = torch.clamp(pos, max=L - 1).reshape(1).long()
-    ckv = shard(cache["ckv"].index_copy(1, slot, ckv_new), "batch", "cache_seq", None)
-    kr = cache["kr"].index_copy(1, slot, kr_new)
-    valid = torch.arange(L, device=x.device) <= pos
+    valid = torch.arange(L, device=pos.device) <= pos
+    ckv, kr = write_slot(cache["ckv"], 1, slot, ckv_new), write_slot(cache["kr"], 1, slot, kr_new)
     y = _mla_attend(p, cfg, q_nope, q_rope, ckv, kr, valid[None, None, None, :], kv_seq_sharded=True)
     return y, {"ckv": ckv, "kr": kr}
 
@@ -320,9 +390,9 @@ def _act(name: str, x):
 
 def mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU)."""
-    h = _act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])
+    h = _act(cfg.mlp_act, _mm(x, p, "w_gate")) * _mm(x, p, "w_up")
     h = shard(h, "batch", None, "ff")
-    return h @ p["w_down"]
+    return _mm(h, p, "w_down")
 
 
 def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
@@ -350,6 +420,24 @@ def _grouped_mlp(cfg: ArchConfig, rows: torch.Tensor, sizes: list[int], w_gate, 
             ys.append((_act(cfg.mlp_act, r @ wg[ex]) * (r @ wu[ex])) @ wd[ex])
             start += n
     return torch.cat(ys) if ys else rows[:0]
+
+
+def spread(total: int, n: int) -> list[int]:
+    """``total`` rows over ``n`` groups as evenly as they go (the first
+    groups one more)."""
+    return [total // n + (1 if i < total % n else 0) for i in range(n)]
+
+
+def host_read(counts: torch.Tensor, balanced) -> list[int]:
+    """``counts.tolist()``: a MoE layer's one host read of its group sizes.
+    Under ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) a tensor has
+    no values to read, and ``balanced()`` stands in for them: every expert
+    T·k/E rows, the routing ``model_flops_per_step`` assumes."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(counts):
+        return balanced()
+    return counts.tolist()
 
 
 _MOE_WEIGHTS = ("router", "w_gate_e", "w_up_e", "w_down_e", "w_gate_sh", "w_up_sh", "w_down_sh")
@@ -402,15 +490,17 @@ def _moe_local(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     t_rep = t[:, None, :].expand(-1, e.top_k, -1).reshape(-1, d)[order]  # k copies a token, by expert
     # group sizes over the allocated (padded) experts; .tolist() is the one
     # host sync (bincount and an int repeat_interleave would add their own)
-    sizes = torch.zeros(p["w_gate_e"].shape[0], dtype=torch.int64, device=x.device)
-    sizes = sizes.scatter_add_(0, flat_expert, torch.ones_like(flat_expert)).tolist()
+    n_alloc = p["w_gate_e"].shape[0]
+    sizes = torch.zeros(n_alloc, dtype=torch.int64, device=x.device)
+    sizes = host_read(sizes.scatter_add_(0, flat_expert, torch.ones_like(flat_expert)),
+                      lambda: spread(B * S * e.top_k, e.n_experts) + [0] * (n_alloc - e.n_experts))
     y = _grouped_mlp(cfg, t_rep, sizes, p["w_gate_e"], p["w_up_e"], p["w_down_e"])
     y = y[inv].reshape(B * S, e.top_k, d)
     y = torch.einsum("tkd,tk->td", y, top_p.to(y.dtype))
 
     if e.n_shared:
-        sh = _act(cfg.mlp_act, t @ p["w_gate_sh"]) * (t @ p["w_up_sh"])
-        y = y + sh @ p["w_down_sh"]
+        sh = _act(cfg.mlp_act, _mm(t, p, "w_gate_sh")) * _mm(t, p, "w_up_sh")
+        y = y + _mm(sh, p, "w_down_sh")
     return y.reshape(B, S, d)
 
 
@@ -466,7 +556,7 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.
     """Full-sequence Mamba-1 (selective SSM) forward."""
     mb, d_in, dt_rank = _mamba_dims(cfg)
     S = x.shape[1]
-    xz = x @ p["in_proj"]  # (B, S, 2·d_in)
+    xz = _mm(x, p, "in_proj")  # (B, S, 2·d_in)
     xi, z = torch.chunk(xz, 2, dim=-1)
     xi = shard(xi, "batch", None, "d_inner")
 
@@ -479,9 +569,9 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.
     chan = ("batch", None, "d_inner")
     xi = local_region(conv, (xi, chan), (p["conv_w"], ("d_inner", None)), (p["conv_b"], ("d_inner",)))
 
-    proj = xi @ p["x_proj"]  # (B, S, dt_rank + 2N)
+    proj = _mm(xi, p, "x_proj")  # (B, S, dt_rank + 2N)
     dt, Bc, Cc = torch.split(proj, [dt_rank, mb.d_state, mb.d_state], dim=-1)
-    dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])  # (B, S, d_in)
+    dt = _softplus(_mm(dt, p, "dt_proj") + p["dt_bias"])  # (B, S, d_in)
     A = -torch.exp(p["A_log"].to(torch.float32))  # (d_in, N)
 
     chunk = min(chunk, S)
@@ -496,7 +586,7 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.
     y = local_region(scan, (dt, chan), (xi, chan), (Bc, seq), (Cc, seq), (A, ("d_inner", None)))
     y = y + (xi * p["D"]).to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return y @ p["out_proj"]
+    return _mm(y, p, "out_proj")
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device=None):
@@ -511,21 +601,35 @@ def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device=None):
 
 
 def mamba_decode(p, cfg: ArchConfig, x, state, pos):
-    """Single-token recurrence: O(1) state whatever the position."""
+    """Single-token recurrence: O(1) state whatever the position. On a mesh
+    the convolution window and the state update run in regions of this
+    rank's (batch, channel) block, so both states keep their layout (batch
+    over (pod, data), d_inner over "model", as ``cache_shardings`` lays them
+    out) and no collective of a state's size runs."""
     del pos
     mb, d_in, dt_rank = _mamba_dims(cfg)
-    xz = x[:, 0, :] @ p["in_proj"]
+    xz = _mm(x[:, 0, :], p, "in_proj")
     xi, z = torch.chunk(xz, 2, dim=-1)  # (B, d_in)
-    window = torch.cat([state["conv"], xi[:, None, :]], dim=1)  # (B, d_conv, d_in)
-    xi = torch.einsum("bcd,dc->bd", window, p["conv_w"]) + p["conv_b"]
-    xi = F.silu(xi)
-    proj = xi @ p["x_proj"]
+    chan, conv_dims, ssm_dims = ("batch", "d_inner"), ("batch", None, "d_inner"), ("batch", "d_inner", None)
+    window = local_region(lambda c, xi: torch.cat([c, xi[:, None, :]], dim=1),  # (B, d_conv, d_in)
+                          (state["conv"], conv_dims), (xi, chan))
+    xi = local_region(lambda xi, window, w, b: F.silu(torch.einsum("bcd,dc->bd", window, w) + b),
+                      (xi, chan), (window, conv_dims), (p["conv_w"], ("d_inner", None)), (p["conv_b"], ("d_inner",)))
+    proj = _mm(xi, p, "x_proj")
     dt, Bc, Cc = torch.split(proj, [dt_rank, mb.d_state, mb.d_state], dim=-1)
-    dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    a_bar = torch.exp(dt[..., None] * A)  # (B, d_in, N), float32
-    h = a_bar * state["ssm"] + (dt * xi)[..., None] * Bc[:, None, :]
-    y = torch.einsum("bdn,bn->bd", *_promoted(h, Cc)) + xi * p["D"]
-    y = y * F.silu(z)
-    y = (y.to(x.dtype) @ p["out_proj"])[:, None, :]
+    dt = _softplus(_mm(dt, p, "dt_proj") + p["dt_bias"])
+
+    def update(ssm, dt, xi, Bc, A_log):
+        a_bar = torch.exp(dt[..., None] * -torch.exp(A_log.to(torch.float32)))  # (B, d_in, N), float32
+        return a_bar * ssm + (dt * xi)[..., None] * Bc[:, None, :]
+
+    h = local_region(update, (state["ssm"], ssm_dims), (dt, chan), (xi, chan), (Bc, ("batch", None)),
+                     (p["A_log"], ("d_inner", None)))
+
+    def read(xi, h, Cc, D, z):
+        y = torch.einsum("bdn,bn->bd", *_promoted(h, Cc)) + xi * D
+        return y * F.silu(z)
+
+    y = local_region(read, (xi, chan), (h, ssm_dims), (Cc, ("batch", None)), (p["D"], ("d_inner",)), (z, chan))
+    y = _mm(y.to(x.dtype), p, "out_proj")[:, None, :]
     return y, {"conv": window[:, 1:, :], "ssm": h}

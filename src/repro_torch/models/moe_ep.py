@@ -41,9 +41,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.models.blocks import _act, _grouped_mlp
+from repro_torch.models.blocks import _act, _grouped_mlp, host_read, spread
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.sharding import auto_mesh, mesh_sizes, placements
+from repro_torch.models.sharding import auto_mesh, gathered, mesh_sizes, placements
 
 # the capacity factor moe_ep uses when its caller (blocks.moe) passes none
 CAPACITY_FACTOR = 2.0
@@ -193,7 +193,19 @@ def _moe_ep_body(cfg: ArchConfig, t_all, router, wg, wu, wd, group, cf: float):
     t_sorted = recv_flat[order]
     # one host read: the group sizes, and this rank's routed / dropped copies
     dropped = (pair_valid & ~ok).sum()
-    read = torch.cat([_counts(eid_flat, e_per_rank + 1)[:e_per_rank], pair_valid.sum()[None], dropped[None]]).tolist()
+    def balanced():  # the dry run's stand-in: T·k/E rows an expert, none dropped
+        first = r * e_per_rank
+        mine = max(min(e.n_experts - first, e_per_rank), 0)
+        rows = spread(T_pad * m * k, e.n_experts)[first:first + mine] + [0] * (e_per_rank - mine)
+        valid = min(max(t_all.shape[0] - r * T_pad, 0), T_pad) * k
+        room = m * cap  # the rows this rank receives
+        for i, n in enumerate(rows):
+            rows[i] = min(n, room)
+            room -= rows[i]
+        return rows + [valid, 0]
+
+    read = host_read(torch.cat([_counts(eid_flat, e_per_rank + 1)[:e_per_rank], pair_valid.sum()[None],
+                                dropped[None]]), balanced)
     sizes = read[:e_per_rank]
     copies["routed"] += read[-2]
     copies["dropped"] += read[-1]
@@ -222,7 +234,9 @@ def _moe_repl_body(cfg: ArchConfig, t_all, router, wg, wu, wd, group):
     order = torch.argsort(flat_e, stable=True)
     inv = torch.argsort(order, stable=True)
     t_rep = _pairs(t, k)[order]
-    y = _grouped_mlp(cfg, t_rep, _counts(flat_e, wg.shape[0]).tolist(), wg, wu, wd)
+    sizes = host_read(_counts(flat_e, wg.shape[0]),
+                      lambda: spread(T_pad * k, e.n_experts) + [0] * (wg.shape[0] - e.n_experts))
+    y = _grouped_mlp(cfg, t_rep, sizes, wg, wu, wd)
     y = y[inv].reshape(T_pad, k, d)
     y_tok = torch.einsum("tkd,tk->td", y, top_p.to(y.dtype))
     out = _gather(y_tok, group)
@@ -295,6 +309,6 @@ def moe_ep(cfg: ArchConfig, p: dict, x, cf: float | None = None):
     y = DTensor.from_local(out.reshape(x_loc.shape), mesh, placements(bspec, mesh), run_check=False)
 
     if e.n_shared:
-        sh = _act(cfg.mlp_act, x @ p["w_gate_sh"]) * (x @ p["w_up_sh"])
-        y = y + sh @ p["w_down_sh"]
+        sh = _act(cfg.mlp_act, x @ gathered(p["w_gate_sh"], x)) * (x @ gathered(p["w_up_sh"], x))
+        y = y + sh @ gathered(p["w_down_sh"], sh)
     return y

@@ -265,6 +265,104 @@ def shard(x, *dims: str | None):
     return x.redistribute(mesh, want)
 
 
+def gathered(w, x=None):
+    """A weight as a matmul with the activation ``x`` reads it: where the
+    weight is the smaller of the two (training, prefill: not one decode
+    token), its FSDP split — any split on a mesh dim the batch is split over
+    ("pod", "data"; every dim under the "dp" profile) — gathered, FSDP's
+    all-gather before use, its gradient going back reduce-scattered to the
+    weight's layout; the splits of the other dims (tensor parallelism over
+    "model") stay. Without it DTensor may gather the activations' batch
+    instead, and every rank would compute every sequence. Where ``x`` is
+    the smaller, or on a plain tensor, or without an active mesh: ``w`` as
+    it is (DTensor then moves the activations)."""
+    if not isinstance(w, DTensor) or (x is not None and x.numel() < w.numel()):
+        return w
+    batch = set(_rules()["batch"]) & _active_axes()
+    names = w.device_mesh.mesh_dim_names
+    want = [Replicate() if names[i] in batch and isinstance(q, Shard) else q for i, q in enumerate(w.placements)]
+    return w if want == list(w.placements) else w.redistribute(w.device_mesh, want)
+
+
+def _whole_along(t, dim: int, cuts):
+    """``t`` with ``dim`` gathered where ``cuts(parts)`` says its split into
+    ``parts`` cuts a head: DTensor reshapes a split dim only when the split
+    falls on head boundaries (GSPMD gathers there too)."""
+    if not isinstance(t, DTensor):
+        return t
+    split = [i for i, q in enumerate(t.placements) if isinstance(q, Shard) and q.dim == dim]
+    parts = 1
+    for i in split:
+        parts *= t.device_mesh.size(i)
+    if not cuts(parts):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if i in split else q for i, q in enumerate(t.placements)])
+
+
+def _pinned(t):
+    """``t`` whose gradient arrives laid out as ``t`` is (a redistribute to
+    its own placements): the backward of the reshape that made ``t`` is then
+    the inverse of a reshape DTensor ran, on the same layout."""
+    return t.redistribute(t.device_mesh, t.placements) if isinstance(t, DTensor) else t
+
+
+def unflatten(t, dim: int, sizes: tuple[int, ...]):
+    """``t`` with ``dim`` split into ``sizes`` (a weight's or a projection's
+    flat heads dim into (heads, head_dim)). On a DTensor whose split of
+    ``dim`` does not divide ``sizes[0]`` — 2 KV heads on a 16-way "model"
+    dim — the dim is gathered first."""
+    dim = dim % t.ndim
+    t = _whole_along(t, dim, lambda parts: sizes[0] % parts != 0)
+    return _pinned(t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:]))
+
+
+def flatten(t, dim: int):
+    """``t`` with dims ``dim`` and ``dim + 1`` merged ((heads, head_dim) into
+    one); a split of ``dim`` that does not divide it evenly is gathered
+    first."""
+    dim = dim % t.ndim
+    t = _whole_along(t, dim, lambda parts: t.shape[dim] % parts != 0)
+    return _pinned(t.reshape(*t.shape[:dim], t.shape[dim] * t.shape[dim + 1], *t.shape[dim + 2:]))
+
+
+def split_offset(t, dim: int) -> tuple[list[int], int]:
+    """The mesh dims that split ``dim`` of the DTensor ``t`` (in mesh order)
+    and this rank's offset along ``dim``: its block starts there. Raises
+    where a split is uneven."""
+    mesh = t.device_mesh
+    split = [i for i, q in enumerate(t.placements) if isinstance(q, Shard) and q.dim == dim]
+    size, off = t.shape[dim], 0
+    for i in split:
+        n = mesh.size(i)
+        if size % n:
+            raise ValueError(f"dim {dim} of size {size} does not split evenly over mesh dim {i} of size {n}")
+        size //= n
+        off += mesh.get_local_rank(i) * size
+    return split, off
+
+
+def write_slot(cache, dim: int, slot: torch.Tensor, new):
+    """``cache`` with ``new`` (size 1 along ``dim``) written at index ``slot``
+    (a one-element integer tensor) along ``dim`` — the decode cache's write.
+    On a DTensor cache the write runs on this rank's block: only the rank
+    whose block holds the slot changes it, the cache keeps its placements,
+    and no collective of the cache's size runs (``new`` is laid out as the
+    cache, whole along the dims that split ``dim``)."""
+    if not isinstance(cache, DTensor):
+        return cache.index_copy(dim, slot, new)
+    mesh = cache.device_mesh
+    split, off = split_offset(cache, dim)
+    lay = [Replicate() if i in split else q for i, q in enumerate(cache.placements)]
+    new_loc = like(new, cache).redistribute(mesh, lay).to_local()
+    loc = cache.to_local()
+    here = slot - off
+    inside = (here >= 0) & (here < loc.shape[dim])
+    at = torch.clamp(here, 0, loc.shape[dim] - 1)
+    # a rank whose block misses the slot writes back what it holds there
+    entry = torch.where(inside, new_loc, loc.index_select(dim, at))
+    return DTensor.from_local(loc.index_copy(dim, at, entry), mesh, cache.placements, run_check=False)
+
+
 def local_region(fn, *inputs):
     """``fn`` on this rank's blocks, for a computation DTensor's sharding
     propagation cannot partition (an einsum whose batch dims are split over

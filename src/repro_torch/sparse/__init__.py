@@ -1,6 +1,7 @@
 """Sparse-matrix substrate: host CSR (numpy), device ELL (torch),
 row partitioner, synthetic datasets."""
 
+from repro_torch.sparse.bsr import BsrMatrix, bsr_from_csr, bsr_matvec_ref
 from repro_torch.sparse.csr import CSRMatrix, csr_from_dense, csr_matvec, csr_rmatvec
 from repro_torch.sparse.ell import (
     EllBlock,
@@ -28,6 +29,9 @@ from repro_torch.sparse.synthetic import (
 )
 
 __all__ = [
+    "BsrMatrix",
+    "bsr_from_csr",
+    "bsr_matvec_ref",
     "CSRMatrix",
     "csr_from_dense",
     "csr_matvec",

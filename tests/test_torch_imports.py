@@ -45,6 +45,8 @@ SLICE_MODULES = [
     "repro_torch.train.data", "repro_torch.train.loop", "repro_torch.launch.train",
     "repro_torch.launch.steps", "repro_torch.launch.mesh", "repro_torch.models.sharding",
     "repro_torch.models.moe_ep", "repro_torch.optim.hybrid2d",
+    "repro_torch.launch.input_specs", "repro_torch.launch.dryrun", "repro_torch.launch.report",
+    "repro_torch.sparse.bsr",
 ]
 
 _IMPORT_ALL = """
@@ -121,6 +123,7 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
     from repro_torch.launch import sweep as sweep_cli
     from repro_torch.serve import DriftStream, ModelStore
     from repro_torch.serve.ingest import stream_team_problem
+    from repro_torch.sparse.bsr import bsr_from_csr
     from repro_torch.sparse.ell import ell_from_csr
     from repro_torch.sparse.synthetic import make_skewed_csr
     from repro_torch.configs import get_config, reduced
@@ -143,6 +146,7 @@ def test_device_none_means_cuda_or_an_error(tmp_path):
         lambda: sweep([spec], resume_dir=tmp_path / "sweep"),
         lambda: resolve_device(None),
         lambda: ell_from_csr(a),
+        lambda: bsr_from_csr(a),
         lambda: make_problem(a, y),
         lambda: stack_row_teams(a, y, 2),
         lambda: team_problem_from_numpy(idx, val, valid, p=1, m=8, n=4),
