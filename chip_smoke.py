@@ -8,7 +8,9 @@ mode of each (fp32 and bf16) against its plain PyTorch version on the GPU,
 drives the port's paths (the simulated HybridSGD engine: synchronous fp32,
 then delay D = 2 in bf16 and in fp32) on the full-size synthetic ``rcv1``
 dataset through the entry points a user calls, checks that each path went
-through its kernels, reads the comm ledger, times the kernels (also on the
+through its kernels, reads the comm ledger, holds the rounds replayed from
+CUDA graphs (``repro_torch.core.round_graph``) against the same rounds run
+eagerly and times the two in turns (the graph phase), times the kernels (also on the
 column-local bundles of a 2 × 2 mesh), drives the front door at the same
 width (an ``ExperimentSpec`` read from JSON text → ``plan`` → ``Session`` →
 save → ``Session.restore`` → ``run`` → report, the delayed bf16 schedule, a
@@ -70,7 +72,7 @@ qwen2.5-3b × train_4k and deepseek-v2-lite-16b × decode_32k on the fake
 (16, 16) mesh beside them (predictions against published peaks); and prints
 
   * the GPU's name and power limit,
-  * one JSON line each ``{"tune": ...}``, ``{"front_door": ...}``,
+  * one JSON line each ``{"graph": ...}``, ``{"tune": ...}``, ``{"front_door": ...}``,
     ``{"serve": ...}``, ``{"mesh": ...}``, ``{"lm": ...}``, ``{"zoo": ...}`` and
     ``{"model_mesh": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
@@ -89,7 +91,7 @@ eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
 block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase and the
 model_mesh phase alone, their four ranks over NCCL with one rank a card, on a
-machine with four cards. ``--zoo`` runs the zoo phase alone, ``--model-mesh``
+machine with four cards. ``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
 the model_mesh phase, ``--decode-mesh`` its part (c), ``--dryrun`` its parts (c)
 and (d). Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
@@ -240,6 +242,10 @@ MM_PARTS = ("hybrid", "moe", "decode", "dryrun")
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
+# the graph phase: runs of 128 rounds (a benchmark window) graphed against
+# eager, and GRAPH_TURNS windows of each of eager, serial and branched
+# graphs in turns
+GRAPH_ROUNDS, GRAPH_TURNS = 128, 8
 
 
 def log(msg: str) -> None:
@@ -315,7 +321,9 @@ def profile_main_path(label: str, run, rounds: int) -> dict:
     """``--profile``: trace one more run of a path and print where the
     device time went, by kernel name, and the device's busy share.
     Returns the wall and the device's busy time a round, in ms, and the
-    idle share of the wall."""
+    idle share of the wall. Busy is the union of the device activities'
+    spans: where kernels overlap (a round graph's teams on side streams)
+    it is less than their summed time (``kernel_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -334,17 +342,25 @@ def profile_main_path(label: str, run, rounds: int) -> dict:
                 device_rows.append((self_us, ev.count, ev.key))
         elif ev.self_cpu_time_total > 0:
             host_rows.append((ev.self_cpu_time_total, ev.count, ev.key))
-    busy_us = sum(r[0] for r in device_rows)
+    kernel_us = sum(r[0] for r in device_rows)
     host_us = sum(r[0] for r in host_rows)
+    busy_us, reached = 0.0, -math.inf
+    for start, end in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                             if str(ev.device_type).endswith("CUDA")):
+        if end > reached:
+            busy_us += end - max(start, reached)
+            reached = end
     check(busy_us > 0, "the profiler recorded no device time")
     log(f"[profile] {label} path, {rounds} rounds under the profiler: wall {wall_us / rounds / 1e3:.3f} ms a round, device busy "
-        f"{busy_us / rounds / 1e3:.3f} ms a round = {busy_us / wall_us:.1%} of the wall time (idle {1 - busy_us / wall_us:.1%}); "
-        f"host time inside traced operators {host_us / rounds / 1e3:.3f} ms a round")
+        f"{busy_us / rounds / 1e3:.3f} ms a round = {busy_us / wall_us:.1%} of the wall time (idle {1 - busy_us / wall_us:.1%}; "
+        f"kernels {kernel_us / rounds / 1e3:.3f} ms a round summed); host time inside traced operators "
+        f"{host_us / rounds / 1e3:.3f} ms a round")
     for self_us, count, key in sorted(device_rows, reverse=True)[:10]:
-        log(f"[profile] device {self_us / rounds:9.1f} us a round  {self_us / busy_us:6.1%}  {count / rounds:6.1f} a round  {key[:80]}")
+        log(f"[profile] device {self_us / rounds:9.1f} us a round  {self_us / kernel_us:6.1%}  {count / rounds:6.1f} a round  {key[:80]}")
     for self_us, count, key in sorted(host_rows, reverse=True)[:10]:
         log(f"[profile] host   {self_us / rounds:9.1f} us a round  {self_us / wall_us:6.1%} of wall  {count / rounds:6.1f} a round  {key[:80]}")
-    return {"wall_ms": wall_us / rounds / 1e3, "busy_ms": busy_us / rounds / 1e3, "idle_share": 1 - busy_us / wall_us}
+    return {"wall_ms": wall_us / rounds / 1e3, "busy_ms": busy_us / rounds / 1e3, "idle_share": 1 - busy_us / wall_us,
+            "kernel_ms": kernel_us / rounds / 1e3}
 
 
 def errors(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float, bool]:
@@ -618,6 +634,174 @@ def check_gram(device, err: dict, grid, edge_shapes) -> tuple[float, int]:
 def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got − ref| over max |ref|."""
     return float((got - ref).abs().max() / ref.abs().max())
+
+
+@contextlib.contextmanager
+def eager_rounds():
+    """Inside: the simulated engine's round dispatcher is rebound to the
+    plain loop of ``_one_round``, so every round runs eagerly (as before
+    rounds were replayed from CUDA graphs)."""
+    from repro_torch.core import engine
+
+    graphed = engine._run_rounds
+
+    def eager(tp, x, rounds, eta, sched, geometry=None):
+        for r in rounds:
+            x = engine._one_round(tp, x, r, eta, sched, geometry)
+        return x
+
+    engine._run_rounds = eager
+    try:
+        yield
+    finally:
+        engine._run_rounds = graphed
+
+
+def graph_phase(tp, smi: str) -> dict:
+    """The simulated engine's rounds replayed from CUDA graphs
+    (``repro_torch.core.round_graph``) on the main path's team problem,
+    against the same rounds run eagerly (the dispatcher rebound by
+    ``eager_rounds``): GRAPH_ROUNDS rounds synchronous fp32 and at
+    D = DELAY bf16, x within X_TOL·max |x| (the Yᵀu scatter's atomics) and
+    the launch counts equal; one graph a round residue; the plain versions
+    launch nothing and capture nothing; a Gram off by 1 % is captured
+    anew and misses the limit; then the wall and the timing thread's CPU
+    time a round, in turns: eager, the graphs (teams on side streams), and
+    graphs with the teams in series (``SerialRoundGraph``, on a copy of the
+    problem, so each layout has graphs of its own), and a traced run of
+    each layout. Returns the numbers for the phase's JSON line."""
+    from repro_torch.core import engine, round_graph
+    from repro_torch.core.engine import ParallelSGDSchedule, run_engine_chunk
+
+    device = tp.values.device
+    x0 = torch.zeros(tp.n, dtype=torch.float32, device=device)
+    sync_sched = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=GRAPH_ROUNDS)
+    scheds = {"sync_fp32": sync_sched, f"d{DELAY}_bf16": dataclasses.replace(sync_sched, delay=DELAY, precision="bf16")}
+    cycle = round_graph.round_cycle(tp.rows_local, S * B, TAU // S)
+    check(cycle <= round_graph.CYCLE_CAP, f"{DATASET}'s cycle {cycle} exceeds the cap {round_graph.CYCLE_CAP}")
+    # each residue runs eagerly at its first sight and is captured at its second
+    want = {"captures": min(cycle, GRAPH_ROUNDS - cycle), "replays": GRAPH_ROUNDS - cycle}
+    out = {"card": smi, "cycle": cycle, "cycle_cap": round_graph.CYCLE_CAP, "rounds": GRAPH_ROUNDS}
+
+    def captured() -> dict:
+        return dict(round_graph.counts)
+
+    for label, sched in scheds.items():
+        before = captured()
+        zero_launch_counts()
+        x_graph = run_engine_chunk(tp, x0, 0, GRAPH_ROUNDS, sched)
+        sync()
+        graphed = launch_counts()
+        made = {k: round_graph.counts[k] - before[k] for k in before}
+        check(made == want, f"{label}: {made} over {GRAPH_ROUNDS} rounds, expected {want}")
+        with eager_rounds():
+            zero_launch_counts()
+            x_eager = run_engine_chunk(tp, x0, 0, GRAPH_ROUNDS, sched)
+            sync()
+            eager = launch_counts()
+        x_max = float(x_eager.abs().max())
+        gap = float((x_graph - x_eager).abs().max())
+        log(f"[graph] {label}, {GRAPH_ROUNDS} rounds: graphed vs eager max |Δx| = {gap:.3g} with max |x| = {x_max:.3g} "
+            f"(limit {X_TOL * x_max:.3g}); launches graphed {graphed}, eager {eager}; {made}")
+        check(bool(torch.isfinite(x_graph).all()) and x_max > 0 and gap <= X_TOL * x_max,
+              f"{label}: the graphed rounds are {gap} from the eager ones")
+        check(graphed == eager and sum(graphed.values()) == 2 * GRAPH_ROUNDS * P_R * (TAU // S),
+              f"{label}: launches graphed {graphed} against eager {eager}")
+        out[label] = {"gap": gap, "x_max": x_max, "launches": graphed, **made}
+
+    # one graph a residue, and the memory they hold
+    held = round_graph.graphs_of(tp)
+    per_sched = {label: len(round_graph.graphs_for(tp, x0, sched, None).graphs) for label, sched in scheds.items()}
+    check(all(n == want["captures"] for n in per_sched.values()),
+          f"graphs a schedule {per_sched}, expected {want['captures']} each")
+    out["graphs_per_schedule"] = per_sched
+    out["graphs_on_problem"] = sum(len(g.graphs) for g in held)
+    pools = {tuple(g.pool) for g in held if g.pool is not None}
+    out["pool_bytes"] = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                            if tuple(seg["segment_pool_id"]) in pools)
+    out["static_x_bytes"] = sum(g.x.numel() * g.x.element_size() for g in held if g.x is not None)
+    log(f"[graph] graphs a schedule {per_sched} ({out['graphs_on_problem']} on the problem, every schedule of the run); "
+        f"their pools hold {out['pool_bytes']} bytes, the static iterates {out['static_x_bytes']}")
+    check(out["pool_bytes"] > 0, "the graphs' pools hold no memory")
+
+    # the plain versions: no launch, no capture
+    before = captured()
+    zero_launch_counts()
+    with plain_corrections():
+        run_engine_chunk(tp, x0, 0, 4, dataclasses.replace(sync_sched, gram="blocked"))
+    sync()
+    check(not any(launch_counts().values()) and captured() == before,
+          f"the plain versions launched {launch_counts()} and made {captured()} (before: {before})")
+
+    # a Gram off by 1 % on the graphed problem, over ROUNDS rounds as phase 4
+    # (over GRAPH_ROUNDS the iterate converges and the skew's gap shrinks
+    # below the limit): captured anew, outside the limit
+    with eager_rounds():
+        x_sync = run_engine_chunk(tp, x0, 0, ROUNDS, sync_sched)
+    sync_max = float(x_sync.abs().max())
+    true_gram = engine.bundle_gram_v
+
+    def skewed_gram(*args, **kwargs):
+        g, v = true_gram(*args, **kwargs)
+        return g * 1.01, v
+
+    before = captured()
+    engine.bundle_gram_v = skewed_gram
+    try:
+        x_skew = run_engine_chunk(tp, x0, 0, ROUNDS, sync_sched)
+    finally:
+        engine.bundle_gram_v = true_gram
+    skew_gap = float((x_skew - x_sync).abs().max())
+    skew_made = round_graph.counts["captures"] - before["captures"]
+    log(f"[graph] with G off by 1 %: {skew_made} captures, max |Δx| to the eager run {skew_gap:.3g} "
+        f"(limit {X_TOL * sync_max:.3g})")
+    check(skew_made == max(min(cycle, ROUNDS - cycle), 0) and skew_gap > X_TOL * sync_max,
+          "a Gram matrix wrong by 1 % replayed an old graph or passed the limit")
+    out["skew"] = {"gap": skew_gap, "captures": skew_made}
+
+    # the wall a round in turns: eager, the graphs, and graphs with the teams
+    # in series (on a copy of the problem, captured by SerialRoundGraph at
+    # its warm-up run)
+    class SerialRoundGraph(round_graph.CudaRoundGraph):
+        side_streams = staticmethod(lambda n: None)
+
+    problems = {"eager": tp, "branched": tp, "serial": dataclasses.replace(tp)}
+    modes = tuple(problems)
+
+    def window(mode: str, sched) -> tuple[float, float]:
+        with eager_rounds() if mode == "eager" else contextlib.nullcontext():
+            sync()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            run_engine_chunk(problems[mode], x0, 0, GRAPH_ROUNDS, sched)
+            sync()
+            return time.perf_counter() - t0, time.thread_time() - c0
+
+    for label, sched in scheds.items():
+        round_graph.GRAPH = SerialRoundGraph
+        try:
+            window("serial", sched)
+        finally:
+            round_graph.GRAPH = round_graph.CudaRoundGraph
+        check(all(g.streams is None for g in round_graph.graphs_of(problems["serial"])), "a serial graph has branches")
+        window("eager", sched)
+        walls = {mode: [] for mode in modes}
+        cpus = {mode: [] for mode in modes}
+        for turn in range(GRAPH_TURNS):
+            for mode in (modes if turn % 2 == 0 else modes[::-1]):
+                wall, cpu = window(mode, sched)
+                walls[mode].append(wall * 1e3 / GRAPH_ROUNDS)
+                cpus[mode].append(cpu * 1e3 / GRAPH_ROUNDS)
+        timed = {mode: {"round_ms": statistics.fmean(walls[mode]), "host_cpu_ms": statistics.fmean(cpus[mode]),
+                        "windows_ms": walls[mode]} for mode in modes}
+        for mode in ("branched", "serial"):
+            timed[mode]["profile"] = profile_main_path(
+                f"graphed ({mode}) {label}", lambda: run_engine_chunk(problems[mode], x0, 0, ROUNDS, sched), ROUNDS)
+        out[label]["timed"] = timed
+        log(f"[graph] {label}: wall a round pooled over {GRAPH_TURNS} windows of {GRAPH_ROUNDS} rounds each, in turns: "
+            + ", ".join(f"{m} {timed[m]['round_ms']:.4f} ms (host CPU {timed[m]['host_cpu_ms']:.4f})" for m in modes)
+            + f"; eager / graphs {timed['eager']['round_ms'] / timed['branched']['round_ms']:.2f}×, "
+            f"serial / graphs {timed['serial']['round_ms'] / timed['branched']['round_ms']:.2f}× ({smi})")
+    return out
 
 
 def front_door_phase(tp, zero_counts, counts, smi: str, device=None) -> dict:
@@ -902,6 +1086,7 @@ def serve_phase(err: dict, smi: str, device=None) -> dict:
     import urllib.request
 
     from repro_torch.api import ExperimentSpec, FaultPolicy, MeshSpec, Session, StreamSpec
+    from repro_torch.core import round_graph
     from repro_torch.core.engine import ParallelSGDSchedule
     from repro_torch.core.objective import LOGISTIC
     from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
@@ -989,8 +1174,11 @@ def serve_phase(err: dict, smi: str, device=None) -> dict:
     # (1) the replay stream, synchronous fp32
     with tempfile.TemporaryDirectory() as tmp:
         zero_launch_counts()
+        captures = round_graph.counts["captures"]
         whole = stream_run(replay)  # step_stream(): to each loss boundary
         out["launches_replay_fp32"] = launches_of("replay stream, fp32", fp32_counts(ROUNDS))
+        out["stream_captures"] = round_graph.counts["captures"] - captures
+        check(out["stream_captures"] == 0, f"a stream session captured {out['stream_captures']} round graphs")
         x = whole.current_x()
         x_max = float(np.abs(x).max())
         check(x.shape == (n,) and bool(np.isfinite(x).all()) and x_max > 0, "the stream's final x is not finite (n,)")
@@ -2818,6 +3006,21 @@ def mesh_nccl_main(smi: str) -> None:
     device_line()
 
 
+def graph_main(smi: str) -> None:
+    """``--graph``: the graph phase alone on the main path's team problem,
+    after building the kernels."""
+    from repro_torch.core.teams import stack_row_teams
+    from repro_torch.kernels import _build
+    from repro_torch.sparse.synthetic import make_dataset
+
+    _build.build_all()
+    ds = make_dataset(DATASET, seed=0)
+    graph = graph_phase(stack_row_teams(ds.A, ds.y, P_R, row_multiple=S * B), smi)
+    print(smi, flush=True)
+    print(json.dumps({"graph": graph}), flush=True)
+    device_line()
+
+
 def main() -> None:
     # ---- phase 1: device ------------------------------------------------
     if not torch.cuda.is_available():
@@ -2839,6 +3042,9 @@ def main() -> None:
         print(json.dumps({"zoo": zoo}), flush=True)
         device_line()
         return
+    if "--graph" in sys.argv[1:]:
+        graph_main(smi)
+        return
     alone = {"--model-mesh": MM_PARTS, "--decode-mesh": ("decode",), "--dryrun": ("decode", "dryrun")}
     for flag, parts in alone.items():
         if flag in sys.argv[1:]:
@@ -2848,7 +3054,7 @@ def main() -> None:
             device_line()
             return
 
-    from repro_torch.core import engine
+    from repro_torch.core import engine, round_graph
     from repro_torch.core.comm import time_phase
     from repro_torch.core.distributed import build_2d_problem
     from repro_torch.core.engine import (
@@ -3061,18 +3267,25 @@ def main() -> None:
         g, v = true_gram(*args, **kwargs)
         return g * 1.01, v
 
+    # (the main path's rounds past the first cycle were replayed from CUDA
+    # graphs: the skewed rounds must be captured anew, not replay those)
+    captures = round_graph.counts["captures"]
     engine.bundle_gram_v = skewed_gram
     try:
         x_skew, _ = run_parallel_sgd(tp, x0, sched)
         x_ss_skew, _ = run_parallel_sgd(tp1, x0, ParallelSGDSchedule.sstep(8, 16, ETA, 64))
     finally:
         engine.bundle_gram_v = true_gram
+    skew_captures = round_graph.counts["captures"] - captures
     skew_gap = float((x_skew - x_plain).abs().max())
     skew_identity_gap = float((x_ss_skew - x_sgd).abs().max())
     log(f"[main] with G off by 1 %: max |Δx| to the plain path {skew_gap:.3g} (limit {X_TOL * x_max:.3g}), "
-        f"identity gap {skew_identity_gap:.3g} (limit {IDENTITY_TOL:g})")
+        f"identity gap {skew_identity_gap:.3g} (limit {IDENTITY_TOL:g}); {skew_captures} round graphs captured anew")
     check(skew_gap > X_TOL * x_max and skew_identity_gap > IDENTITY_TOL,
           "a Gram matrix wrong by 1 % passes the end-to-end limits: they are too loose")
+    cycle = round_graph.round_cycle(tp.rows_local, S * B, TAU // S)
+    check(skew_captures == max(min(cycle, ROUNDS - cycle), 0),
+          f"the skewed run captured {skew_captures} round graphs")
 
     # run to run: every G element has one writer, but the Yᵀu scatter-add
     # sums with atomics, so two runs agree to the tolerance, not to the bit
@@ -3150,6 +3363,10 @@ def main() -> None:
     check(b16["gram_bytes"] == b32["gram_bytes"] / 2 and b16["sync_bytes"] == b32["sync_bytes"],
           "the bf16 ledger does not halve the Gram bytes alone")
     check(led16.delay == DELAY and tp.values.is_cuda, "the ledger capture lost the delay or moved the problem")
+
+    # ---- the rounds as CUDA graphs, against the eager rounds --------------
+    graph = graph_phase(tp, smi)
+    print(json.dumps({"graph": graph}), flush=True)
 
     # ---- phase 5: times --------------------------------------------------
     def round_wall_ms(run_sched) -> float:

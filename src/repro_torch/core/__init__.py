@@ -11,6 +11,9 @@ The unified engine (repro_torch.core.engine) implements the whole
   engine_comm_ledger   what a schedule's rounds communicate (CommLedger
                        of CommRates, captured from the round body)
 
+On the card both run a resident problem's rounds as CUDA graphs, one a
+round residue (repro_torch.core.round_graph).
+
 The 2D-mesh backend (repro_torch.core.distributed), one process per
 mesh device over ``torch.distributed``:
 

@@ -377,6 +377,11 @@ def capture_rates(fn, *meta_args, spans: dict[str, int]) -> tuple[CommRate, ...]
     return tuple(rec.rates)
 
 
+def recording() -> bool:
+    """Whether ``capture_rates`` is recording in this context."""
+    return _RECORDER.get() is not None
+
+
 def _tree_leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]

@@ -24,7 +24,9 @@ repro_torch.kernels.ell_gram), runs the s sequential corrections
 applies) and adds (η/b)·Yᵀu. The ``lax.scan`` / ``lax.map`` / ``vmap``
 loops of the JAX engine are Python loops of launches here; the round
 index and the bundle offsets are host integers, and nothing inside the
-round loop reads a value back from the device.
+round loop reads a value back from the device. On the card a resident
+problem's rounds are replayed from CUDA graphs, one a round residue
+(``_run_rounds`` → repro_torch.core.round_graph).
 
 The *loss* is pluggable (repro_torch.core.objective): the engine reads
 the residual map u(z) = −ℓ′(z), the pointwise loss, and the optional L2
@@ -56,7 +58,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.core.comm import COUNTING, Collectives, CommLedger, capture_rates
+from repro_torch.core import round_graph
+from repro_torch.core.comm import COUNTING, Collectives, CommLedger, capture_rates, recording
 from repro_torch.core.objective import LOGISTIC, LogisticObjective, Objective
 from repro_torch.core.problem import Problem, problem_loss
 from repro_torch.core.teams import TeamProblem, global_problem
@@ -325,7 +328,8 @@ def inner_corrections(
 # ``_team_inner_iterations`` and ``delayed_bundle_scan`` look
 # ``bundle_gram_v`` and ``inner_corrections`` up in this module when they
 # run: ``chip_smoke.py`` rebinds them (the plain loop for its all-plain run,
-# a skewed Gram to show that its limits can fail). Keep the calls late-bound.
+# a skewed Gram to show that its limits can fail). Keep the calls late-bound;
+# ``_run_rounds`` keys a round's CUDA graph by the two as bound when it runs.
 def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
                         sched: ParallelSGDSchedule, eta,
                         objective: Objective = LOGISTIC,
@@ -392,6 +396,12 @@ def delayed_bundle_scan(x, *, slice_bundle, bundles: int, n: int,
     return x
 
 
+def bundle_start(k0: int, sb: int, m_local: int) -> int:
+    """First row of the k0-th s-bundle of a team with ``m_local`` rows:
+    cyclic rows [start, start + sb), clamped like a dynamic slice."""
+    return min((k0 * sb) % m_local, max(m_local - sb, 0))
+
+
 def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
                            sched: ParallelSGDSchedule,
                            objective: Objective = LOGISTIC,
@@ -410,9 +420,7 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
     rho_s = float(_integer_pow(_decay(eta, lam), s)) if lam != 0.0 else None
 
     def slice_bundle(t):
-        k0 = round_idx * bundles + t
-        # cyclic rows [start, start + sb); clamped like a dynamic slice
-        start = min((k0 * sb) % m_local, max(m_local - sb, 0))
+        start = bundle_start(round_idx * bundles + t, sb, m_local)
         return indices[start : start + sb], values[start : start + sb]
 
     if sched.delay:
@@ -459,21 +467,33 @@ def _team_inner_iterations(indices, values, n: int, x, round_idx: int, eta,
 
 
 def _one_round(tp: TeamProblem, x, r: int, eta, sched: ParallelSGDSchedule,
-               geometry: tuple[int, int] | None = None):
+               geometry: tuple[int, int] | None = None, streams=None):
     """One outer round: τ inner iterations per row team + the p_r-team
-    average. The single shared round body — the monolithic loop and the
-    chunked path both call exactly this function, so the two cannot
-    drift. Teams run one after another on the one device (the JAX
-    engine's batched-vs-sequential team branch is a memory choice of
-    its compiler, not semantics)."""
-    xs = torch.stack(
-        [
-            _team_inner_iterations(
-                tp.indices[i], tp.values[i], tp.n, x, r, eta, sched, tp.objective, geometry
-            )
-            for i in range(tp.p)
-        ]
-    )
+    average. The single shared round body — eager or captured into a
+    round's CUDA graph (``_run_rounds``), the monolithic loop and the
+    chunked path run exactly this function, so they cannot drift. Teams
+    run one after another on the one device (the JAX engine's
+    batched-vs-sequential team branch is a memory choice of its
+    compiler, not semantics) — or, given CUDA ``streams`` (one a team,
+    while a round is captured), each on its own stream, forked from the
+    current one and joined before the average."""
+    def team(i):
+        return _team_inner_iterations(
+            tp.indices[i], tp.values[i], tp.n, x, r, eta, sched, tp.objective, geometry
+        )
+
+    if streams is None:
+        parts = [team(i) for i in range(tp.p)]
+    else:
+        main = torch.cuda.current_stream()
+        parts = []
+        for i, stream in enumerate(streams):
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                parts.append(team(i))
+        for stream in streams:
+            main.wait_stream(stream)
+    xs = torch.stack(parts)
     # column Allreduce: the p_r-team average, issued through the comm
     # plane (the per-rank payload is the balanced ⌈n/p_c⌉-word shard).
     return COUNTING.allmean_teams(xs, words_per_call=-(-tp.n // sched.p_c))
@@ -492,6 +512,30 @@ def check_delay(sched: ParallelSGDSchedule) -> None:
         )
 
 
+def _run_rounds(tp: TeamProblem, x: torch.Tensor, rounds: range, eta,
+                sched: ParallelSGDSchedule, geometry: tuple[int, int] | None = None) -> torch.Tensor:
+    """The round dispatcher of ``run_engine_chunk`` and ``run_parallel_sgd``:
+    ``rounds`` of ``_one_round`` from ``x``. On CUDA tensors with
+    ``gram="kernel"`` and no comm recorder installed, a round whose bundle
+    offsets repeat within ``round_graph.CYCLE_CAP`` rounds is replayed from
+    the problem's CUDA graph of its residue (``core/round_graph.py``);
+    every other round, and the first sight of each residue, runs eagerly.
+    ``bundle_gram_v`` and ``inner_corrections`` are looked up here, and a
+    rebinding captures anew. Returns a tensor the caller owns."""
+    graphs = None
+    if sched.gram == "kernel" and not recording():
+        graphs = round_graph.graphs_for(tp, x, sched, geometry)
+    if graphs is None:
+        for r in rounds:
+            x = _one_round(tp, x, r, eta, sched, geometry)
+        return x
+    bindings = (bundle_gram_v, inner_corrections)
+    for r in rounds:
+        x = graphs.round(x, r, bindings,
+                         lambda xin, streams, r=r: _one_round(tp, xin, r, eta, sched, geometry, streams))
+    return graphs.release(x)
+
+
 def engine_loss(gp: Problem, x: torch.Tensor) -> torch.Tensor:
     """The loss probe — the same ``problem_loss`` (under ``gp``'s
     objective) the monolithic loop samples at chunk boundaries."""
@@ -508,18 +552,18 @@ def run_engine_chunk(
 ) -> torch.Tensor:
     """Run ``k`` rounds starting at global round ``round_offset`` and
     return the new weights (on the problem's device; no host sync).
-    ``geometry``: the Gram kernel's tuned (tile, ks), or None.
+    ``geometry``: the Gram kernel's tuned (tile, ks), or None. ``x`` is
+    left as it was, and the result is the caller's to keep.
 
     Calling it with offsets 0, k, 2k, … reproduces
     ``run_parallel_sgd``'s iterate sequence exactly, because both paths
-    loop the same ``_one_round`` body over the same round indices."""
+    go through the same dispatcher (``_run_rounds``) over the same round
+    indices."""
     if sched.eta <= 0:
         raise ValueError(f"eta={sched.eta} must be > 0 to run the solver")
     check_delay(sched)
-    eta = np.float32(sched.eta)
-    for r in range(int(round_offset), int(round_offset) + int(k)):
-        x = _one_round(tp, x, r, eta, sched, geometry)
-    return x
+    start = int(round_offset)
+    return _run_rounds(tp, x, range(start, start + int(k)), np.float32(sched.eta), sched, geometry)
 
 
 def run_parallel_sgd(
@@ -559,8 +603,7 @@ def run_parallel_sgd(
     x = x0
     losses = []
     for c in range(n_chunks):
-        for r in range(c * chunk, (c + 1) * chunk):
-            x = _one_round(tp, x, r, eta, sched)
+        x = _run_rounds(tp, x, range(c * chunk, (c + 1) * chunk), eta, sched)
         if sched.loss_every:
             losses.append(problem_loss(gp, x))
     if losses:
