@@ -47,8 +47,12 @@ against the CPU's, decode ≡ forward, 10 adamw steps whose loss must fall,
 tokens/s, peak memory, host syncs a train and a decode step, decode tokens/s
 against a 512-deep cache, prefill time — and jamba reduced (decode ≡ forward,
 the first loss; one ``{"zoo": ...}`` JSON line), then the model mesh
-(``model_mesh_phase``): four spawned processes sharing the card in a gloo
-group with CUDA tensors, published widths cut to 2 layers — qwen2.5-3b
+(``model_mesh_phase``): first on a world-size-1 NCCL group in the script's
+own process, qwen2.5-3b at published width, 2 layers, on a (1, 1) mesh —
+one ``train(mesh=...)`` step (loss and every gradient) and 8 decode steps
+against the single-device step and decode on the card — then four spawned
+processes sharing the card in a gloo group with CUDA tensors, published
+widths cut to 2 layers — qwen2.5-3b
 through ``train(mesh=...)`` on a (2, 1, 2) pod/data/model mesh against a
 FedAvg oracle computed on the card first (losses, final parameters, the pods
 apart before each sync and bitwise equal after it), and deepseek-v2-lite-16b's
@@ -56,7 +60,7 @@ apart before each sync and bitwise equal after it), and deepseek-v2-lite-16b's
 mesh at cf = 8 against the single-device step (the loss and every gradient
 leaf), with the dropped share of the token copies at cf = 2 and 1, tokens/s,
 peak memory a rank and the time of a pod sync and of an ``all_to_all``
-(correctness runs, not measurements of communication; one
+(on gloo correctness runs, not measurements of communication; one
 ``{"model_mesh": ...}`` JSON line), then in the same four ranks (c) decode
 on a (2, 2) data/model mesh — qwen2.5-3b, deepseek-v2-lite-16b (experts
 stationary, through ``moe_ep``) and falcon-mamba-7b at published width, 2
@@ -64,7 +68,8 @@ layers, laid out by ``resolve_config(arch, decode_32k)``, ``param_pspecs``
 and ``cache_shardings``, 32 serve steps of batch 8 against a 512-deep cache,
 every step's logits against the single-device decode on the card, the
 routing first, the cache's placements after every step, a step's
-collectives the same at twice the depth — and (d) the dry run
+collectives the same at twice the depth and the same as torch's
+``CommDebugMode`` counts — and (d) the dry run
 (``launch/dryrun.run_combo`` on fake tensors) at (c)'s shape, its parameter
 and cache bytes and collective counts held equal to (c)'s real ones, its
 peak beside ``max_memory_allocated``, with the full-width dry run of
@@ -91,7 +96,11 @@ eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
 block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase and the
 model_mesh phase alone, their four ranks over NCCL with one rank a card, on a
-machine with four cards. ``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
+machine with four cards: the same oracles and limits as on gloo, DTensor's
+functional all-gather held bitwise against c10d's on each mesh dim, and (a)'s
+tokens/s at τ = 1 and τ = 2 in turns; its walls, a pod sync's and an
+``all_to_all``'s ms are measurements of the cards' communication.
+``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
 the model_mesh phase, ``--decode-mesh`` its part (c), ``--dryrun`` its parts (c)
 and (d). Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
@@ -114,6 +123,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -239,6 +249,21 @@ MM_DEC_BATCH, MM_DEC_DEPTH, MM_DEC_STEPS = 8, 512, 32
 MM_DRY_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b")
 MM_HOST_DRY = (("qwen2.5-3b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"))
 MM_PARTS = ("hybrid", "moe", "decode", "dryrun")
+# (a) over NCCL, one card a rank: tokens/s of train(mesh=...) at τ = 1 and at
+# τ = MM_TAU, MM_TAU_TURNS turns of each (the first side alternating), each a
+# run of MM_TAU_STEPS steps from the same weights; the paper's trade-off
+MM_TAU_TURNS, MM_TAU_STEPS = 3, 8
+# the ranks' process-group timeout: gloo carries a 2-layer step of published
+# width through the host for minutes; a NCCL collective that waits this long
+# on a peer has lost it
+MM_TIMEOUT_S = {"gloo": 900, "nccl": 300}
+# the world-size-1 NCCL model mesh in the script's own process (qwen2.5-3b,
+# published width, MM_LAYERS layers): one train(mesh=...) step of
+# MM_NCCL1_BATCH × MM_SEQ on a (1, 1) ("data", "model") mesh, its loss and
+# gradients against the single-device step's (ZOO_CPU_RTOL, ZOO_GRAD_RTOL),
+# and MM_NCCL1_DECODE decode steps of MM_DEC_BATCH against a MM_DEC_DEPTH-deep
+# cache against the single-device decode (ZOO_CPU_RTOL)
+MM_NCCL1_BATCH, MM_NCCL1_DECODE = 4, 8
 # served margins against a float64 host einsum over the version's
 # checkpoint weights: max |Δ| over max |margin| of the version's answers
 MARGIN_RTOL = 1e-6
@@ -259,6 +284,29 @@ def check(cond: bool, what: str) -> None:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def deferred_checks():
+    """Inside the block a failed ``check`` is logged and kept in the list
+    the block gets, instead of ending the run, and an exception ends only
+    the block, kept the same way: the caller fails on the list."""
+    failed: list = []
+    real = globals()["check"]
+
+    def keep(cond: bool, what: str) -> None:
+        if not cond:
+            log(f"chip_smoke: FAILED — {what}")
+            failed.append(what)
+
+    globals()["check"] = keep
+    try:
+        yield failed
+    except Exception:
+        log(traceback.format_exc())
+        failed.append(traceback.format_exc().strip().splitlines()[-1])
+    finally:
+        globals()["check"] = real
 
 
 @contextlib.contextmanager
@@ -1937,12 +1985,14 @@ def zoo_phase(smi: str, device=None) -> dict:
 
 def _mm_setup(device=None, reduced: bool = False, parts=MM_PARTS) -> dict:
     """The model_mesh phase's sizes, device (None: the card) and parts (of
-    ``MM_PARTS``). ``reduced`` (a CPU rehearsal only): the reduced configs
-    at small batches."""
+    ``MM_PARTS``, run by the spawned ranks). ``reduced`` (a CPU rehearsal
+    only): the reduced configs at small batches."""
     sizes = dict(steps=MM_STEPS, batch=MM_BATCH, seq=MM_SEQ, tau=MM_TAU, moe_batch=MM_MOE_BATCH,
-                 dec_batch=MM_DEC_BATCH, dec_depth=MM_DEC_DEPTH, dec_steps=MM_DEC_STEPS)
+                 dec_batch=MM_DEC_BATCH, dec_depth=MM_DEC_DEPTH, dec_steps=MM_DEC_STEPS,
+                 nccl1_batch=MM_NCCL1_BATCH, nccl1_decode=MM_NCCL1_DECODE, tau_steps=MM_TAU_STEPS)
     if reduced:
-        sizes.update(batch=4, seq=16, moe_batch=4, dec_batch=4, dec_depth=16, dec_steps=6)
+        sizes.update(batch=4, seq=16, moe_batch=4, dec_batch=4, dec_depth=16, dec_steps=6, nccl1_batch=2,
+                     nccl1_decode=4, tau_steps=4)
     return {"device": None if device is None else str(device), "reduced": reduced, "parts": list(parts), **sizes}
 
 
@@ -2081,10 +2131,11 @@ def _mm_decode(out: pathlib.Path, setup: dict) -> dict:
     leaf kept its placements; then one step on a fresh cache of the same
     depth and one twice as deep, without the checks, their collectives
     counted (kind, count, bytes: they must agree — nothing moves the
-    cache). Also the wall
+    cache), the second also by torch's ``CommDebugMode``. Also the wall
     of the steps without the checks, the local bytes of the parameters and
     the cache, and the peak memory."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch import resolve_device
     from repro_torch._tree import path_key, tree_paths
@@ -2148,9 +2199,10 @@ def _mm_decode(out: pathlib.Path, setup: dict) -> dict:
             undo()
         peak = _mm_peak(device)
         for d in (depth, 2 * depth):
-            with sharding.use_mesh(mesh), count_collectives() as stats:
+            with sharding.use_mesh(mesh), CommDebugMode() as torch_counted, count_collectives() as stats:
                 step(params, fresh_cache(d), torch.from_numpy(ids[0]).to(device))
             counted[d] = [stats.count_by_kind, stats.bytes_by_kind]
+            torch_kinds = _torch_kinds(torch_counted)
         routes_equal = None
         if routes:  # the i-th MoE call of the run, both sides; each rank checks its rows
             routes_equal = len(routes) == len(oracle_routes) and all(
@@ -2158,7 +2210,8 @@ def _mm_decode(out: pathlib.Path, setup: dict) -> dict:
         res[arch] = {"gaps": gaps, "kept": kept, "routes_equal": routes_equal,
                      "step_s": step_s, "setup_s": setup_s, "tokens_per_s": B * steps / step_s,
                      "param_bytes": param_bytes, "cache_bytes": cache_bytes, "max_memory_allocated": peak,
-                     "collectives": counted[depth], "collectives_2x": counted[2 * depth]}
+                     "collectives": counted[depth], "collectives_2x": counted[2 * depth],
+                     "torch_counted_2x": torch_kinds}
         del params, cache, logits
         gc.collect()
         if device.type == "cuda":
@@ -2233,6 +2286,129 @@ def _mm_peak(device: torch.device, reset: bool = False) -> int:
     if reset:
         torch.cuda.reset_peak_memory_stats(device)
     return torch.cuda.max_memory_allocated(device)
+
+
+def _torch_kinds(comm) -> dict:
+    """``CommDebugMode``'s counts (torch's own collective counter) by the
+    dry run's kinds."""
+    from repro_torch.launch.roofline import _KIND_OF
+
+    kinds: dict = {}
+    for op, n in comm.get_comm_counts().items():
+        name = str(op).split(".")[-1]
+        kind = _KIND_OF.get(name, name)
+        kinds[kind] = kinds.get(kind, 0) + n
+    return kinds
+
+
+def _mm_nccl1(setup: dict, smi: str) -> dict:
+    """The model mesh on a world-size-1 group in this process — NCCL on the
+    card (gloo in a CPU rehearsal): qwen2.5-3b at published width, depth cut
+    to ``MM_LAYERS``, on a (1, 1) ("data", "model") mesh. One
+    ``train(mesh=...)`` step (its loss and gradients, taken by an optimizer
+    that records them) against the single-device ``train`` step from the
+    same weights and batch, then ``nccl1_decode`` serve steps against the
+    single-device decode, each run's collectives counted. Each mesh run
+    goes through the backend's process group, DTensor on it and the
+    all-gather rule (``launch/mesh.plain_all_gather_needed``)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import resolve_device
+    from repro_torch._tree import tree_map, tree_paths
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.input_specs import cache_shardings
+    from repro_torch.launch.roofline import count_collectives
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import distribute_params, init_cache, param_pspecs, sharding
+    from repro_torch.optim.sgd import Optimizer
+    from repro_torch.train.loop import train
+
+    started = time.perf_counter()
+    device = resolve_device(setup["device"])
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    cfg = _mm_configs(setup)[0]
+    dcfg = _mm_decode_config("qwen2.5-3b", setup)
+    batch, seq = setup["nccl1_batch"], setup["seq"]
+    B, depth, n_dec = setup["dec_batch"], setup["dec_depth"], setup["nccl1_decode"]
+    host = _host_params(cfg)  # dcfg's too: the layout flags draw nothing
+    card = tree_map(lambda t: t.to(device), host)
+
+    def one_step(mesh, params):
+        grads = []
+        opt = Optimizer(init=lambda p: (), update=lambda g, state, p: (grads.append(g) or p, state))
+        with count_collectives() as stats:
+            report = train(cfg, steps=1, batch=batch, seq_len=seq, tau=1, mesh=mesh, opt=opt, log_every=1, seed=0,
+                           device=device, params=params)
+        return report.losses[0], grads[0], {k: v for k, v in stats.count_by_kind.items() if v}
+
+    ids = np.random.default_rng(5).integers(0, dcfg.vocab_size, (n_dec, B, 1))
+    serve = make_serve_step(dcfg)
+
+    def decode(params, cache, mesh):
+        logits = []
+        with sharding.use_mesh(mesh), count_collectives() as stats:
+            for k in range(n_dec):
+                out, cache = serve(params, cache, torch.from_numpy(ids[k]).to(device))
+                logits.append((out.full_tensor() if isinstance(out, DTensor) else out).cpu().numpy())
+        return np.stack(logits), {k: v for k, v in stats.count_by_kind.items() if v}
+
+    loss_1, grads_1, _ = one_step(None, card)
+    want_logits, _ = decode(card, init_cache(dcfg, B, depth, torch.float32, device), None)
+    grads_1 = {"/".join(map(str, p)): t.detach().cpu() for p, t in tree_paths(grads_1)}
+    del card
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device=device)
+            plain_gather = bool(mesh_mod._PLAIN_ALL_GATHER)
+            probe = _all_gather_probe(mesh)
+            loss_m, grads_m, train_coll = one_step(mesh, host)
+            grad_rel = {}
+            for p, g in tree_paths(grads_m):
+                key = "/".join(map(str, p))
+                got = (g.full_tensor() if isinstance(g, DTensor) else g).detach().cpu()
+                grad_rel[key] = float((got - grads_1[key]).abs().max()) / max(float(grads_1[key].abs().max()), 1e-30)
+            del grads_m
+            params = distribute_params(host, param_pspecs(dcfg, host, mesh), mesh)
+            cache = init_cache(dcfg, B, depth, torch.float32, device)
+            cache = distribute_params(cache, cache_shardings(dcfg, _decode_shape(setup), mesh, cache), mesh)
+            got_logits, decode_coll = decode(params, cache, mesh)
+            del params, cache
+        finally:
+            dist.destroy_process_group()
+    gaps = [float(np.abs(g - w).max()) / float(np.abs(w).max()) for g, w in zip(got_logits, want_logits)]
+    loss_rel = abs(loss_m - loss_1) / abs(loss_1)
+    worst = max(grad_rel, key=grad_rel.get)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - started
+    log(f"[mmesh] world-size-1 {backend} model mesh in this process: qwen2.5-3b (published width, {MM_LAYERS} layers) "
+        f"on (1, 1) (data, model); one train(mesh=...) step of {batch} × {seq}: loss {loss_m:.7f} vs the single-device "
+        f"step's {loss_1:.7f} (relative {loss_rel:.3g}, limit {ZOO_CPU_RTOL:g}), gradients worst leaf {worst} "
+        f"{grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves, collectives {train_coll}; "
+        f"{n_dec} decode steps of batch {B} against a {depth}-deep cache: worst step {max(gaps):.3g} from the "
+        f"single-device decode (limit {ZOO_CPU_RTOL:g}), collectives {decode_coll}; plain all-gather registered: "
+        f"{plain_gather}; the functional all-gather on the group bitwise c10d's: {all(probe.values())} ({wall:.1f} s) "
+        f"— {smi}")
+    check(math.isfinite(loss_m) and loss_rel <= ZOO_CPU_RTOL,
+          f"world-size-1 {backend} mesh: the loss is {loss_rel} from the single-device step's")
+    check(grad_rel[worst] <= ZOO_GRAD_RTOL,
+          f"world-size-1 {backend} mesh: the gradient of {worst} is {grad_rel[worst]} from the single-device step's")
+    check(all(math.isfinite(g) for g in gaps) and max(gaps) <= ZOO_CPU_RTOL,
+          f"world-size-1 {backend} mesh: the decode is {max(gaps)} from the single-device decode")
+    check(plain_gather == mesh_mod.plain_all_gather_needed(backend),
+          f"world-size-1 {backend} mesh: the plain all-gather is {'' if plain_gather else 'not '}registered")
+    check(all(probe.values()), f"world-size-1 {backend} mesh: the all-gather probe {probe}")
+    return {"backend": backend, "mesh": [1, 1], "axes": ["data", "model"], "arch": "qwen2.5-3b", "layers": MM_LAYERS,
+            "batch": batch, "seq_len": seq, "loss": loss_m, "single_loss": loss_1, "loss_rel": loss_rel,
+            "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst, "train_collectives": train_coll,
+            "decode_steps": n_dec, "decode_batch": B, "cache_depth": depth, "decode_gap_worst": max(gaps),
+            "decode_collectives": decode_coll, "plain_all_gather": plain_gather, "all_gather_probe": probe,
+            "wall_s": wall}
 
 
 def _leaf_file(root: pathlib.Path, path) -> pathlib.Path:
@@ -2321,12 +2497,23 @@ def _mm_hybrid(out: pathlib.Path, setup: dict) -> dict:
         diff = (got - want).abs()
         leaves["/".join(map(str, path))] = (float(diff.max()), float(diff.sum()), diff.numel())
         del want, diff
+    del final[0]
     tokens = setup["steps"] * setup["batch"] * setup["seq"]
     wall = tokens / report.tokens_per_s
+    # τ = 1 against τ = MM_TAU in turns, each run from the same weights
+    turns = []
+    for turn in range(setup["tau_turns"]):
+        row = {}
+        for tau in ((1, setup["tau"]) if turn % 2 == 0 else (setup["tau"], 1)):
+            rep = loop.train(cfg, steps=setup["tau_steps"], batch=setup["batch"], seq_len=setup["seq"], tau=tau,
+                             mesh=mesh, log_every=setup["tau_steps"], opt=adamw(MM_LR), seed=0, device=device,
+                             params=_host_params(cfg))
+            row[f"tau{tau}"] = rep.tokens_per_s
+        turns.append(row)
     return {"losses": report.losses, "syncs": syncs, "leaves": leaves,
             "tokens_per_s": report.tokens_per_s, "checks_s": checks_s[0],
             "tokens_per_s_without_checks": tokens / (wall - checks_s[0]),
-            "max_memory_allocated": peak}
+            "max_memory_allocated": peak, "tau_turns": turns}
 
 
 def _grad_optimizer():
@@ -2404,10 +2591,44 @@ def _mm_moe(out: pathlib.Path, setup: dict) -> dict:
             "all_to_all_ms": statistics.median(times[1:]), "all_to_all_bytes": send.numel() * 4}
 
 
+def _all_gather_probe(mesh) -> dict:
+    """DTensor's functional all-gather (``funcol.all_gather_tensor``, which
+    ``redistribute`` calls) against ``dist.all_gather_into_tensor`` on each
+    dim's group of ``mesh``, on this rank's tensors: a float32 and a bf16
+    tensor gathered along dim 0 and dim 1 (non-contiguous input). Returns
+    {case: bitwise equal}."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch import resolve_device
+
+    device = torch.device("cpu") if mesh.device_type == "cpu" else resolve_device(None)
+    gen = torch.Generator().manual_seed(100 + dist.get_rank())
+    res = {}
+    for i, name in enumerate(mesh.mesh_dim_names):
+        group = mesh.get_group(i)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((6, 5, 3), generator=gen).to(device=device, dtype=dtype)
+            for dim in (0, 1):
+                got = funcol.all_gather_tensor(x, dim, (mesh, i))
+                got = got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) else got
+                m = dist.get_world_size(group)
+                flat = x.new_empty((m,) + tuple(x.shape))
+                dist.all_gather_into_tensor(flat, x.contiguous()[None], group=group)
+                want = torch.cat(list(flat.unbind(0)), dim=dim)
+                res[f"{name}/{str(dtype).split('.')[-1]}/dim{dim}"] = bool(torch.equal(got, want))
+    return res
+
+
 def model_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, setup: dict) -> None:
-    """One rank of the model_mesh phase (a spawned process): the parts of
-    ``setup`` in order, (a) to (d); writes its numbers under ``out``."""
+    """One rank of the model_mesh phase (a spawned process): the
+    all-gather probe, then the parts of ``setup`` in order, (a) to (d);
+    writes its numbers under ``out``. A part that raises leaves its
+    traceback under ``errors`` and the rank goes on to the next part, so
+    one fault does not hide the other parts' readings (the phase fails on
+    it)."""
     import datetime
+    import traceback
 
     import torch.distributed as dist
 
@@ -2415,16 +2636,24 @@ def model_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, s
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=900))
+                            timeout=datetime.timedelta(seconds=MM_TIMEOUT_S[backend]))
     try:
         from repro_torch import resolve_device
+        from repro_torch.launch import mesh as mesh_mod
 
-        res = {"device": str(resolve_device(setup["device"]))}
+        res = {"device": str(resolve_device(setup["device"])), "errors": {}}
+        res["all_gather_probe"] = _all_gather_probe(mesh_mod.make_mesh((2, 2), ("data", "model"),
+                                                                        device=setup["device"]))
+        res["plain_all_gather"] = bool(mesh_mod._PLAIN_ALL_GATHER)
         parts = {"hybrid": lambda: _mm_hybrid(pathlib.Path(out), setup), "moe": lambda: _mm_moe(pathlib.Path(out), setup),
                  "decode": lambda: _mm_decode(pathlib.Path(out), setup),
                  "dryrun": lambda: _mm_dryrun(setup, res["decode"])}
         for part in setup["parts"]:
-            res[part] = parts[part]()
+            try:
+                res[part] = parts[part]()
+            except Exception:
+                res["errors"][part] = traceback.format_exc()
+                log(f"[mmesh] rank {rank}: part {part} raised\n{res['errors'][part]}")
             gc.collect()
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
@@ -2441,7 +2670,15 @@ def _save_leaves(root: pathlib.Path, tree) -> None:
         np.save(_leaf_file(root, path), t.detach().cpu().numpy())
 
 
-def _report_decode(ranks: list, single_rates: dict, setup: dict, where: str, smi: str) -> dict:
+def _mm_note(backend: str) -> str:
+    """What the model_mesh phase's walls are, by the ranks' backend."""
+    if backend == "gloo":
+        return ("correctness runs, not measurements of communication: gloo moves each CUDA tensor through the "
+                "host, and four processes share one card")
+    return f"{backend}, one card a rank: the walls and the collectives' times are measurements on the cards"
+
+
+def _report_decode(ranks: list, single_rates: dict, setup: dict, where: str, smi: str, backend: str) -> dict:
     """(c)'s checks and numbers from the ranks' results."""
     res = {}
     for arch in MM_DEC_ARCHS:
@@ -2457,13 +2694,17 @@ def _report_decode(ranks: list, single_rates: dict, setup: dict, where: str, smi
         check(all(d["collectives"] == d["collectives_2x"] for d in dec),
               f"(c) {arch}: a step's collectives change with the cache's depth: "
               f"{dec[0]['collectives']} vs {dec[0]['collectives_2x']}")
+        for r, d in enumerate(dec):
+            ours = {k: v for k, v in d["collectives_2x"][0].items() if v}
+            check(ours == d["torch_counted_2x"],
+                  f"(c) {arch} rank {r}: count_collectives counted {ours}, torch's CommDebugMode {d['torch_counted_2x']}")
         rates = [d["tokens_per_s"] for d in dec]
         log(f"[mmesh] (c) {arch} decode on (2, 2) (data, model), {where}: {setup['dec_steps']} serve steps of batch "
             f"{setup['dec_batch']} against a {setup['dec_depth']}-deep cache; logits vs the single-device decode, worst "
             f"step {max(gaps):.3g} (limit {ZOO_CPU_RTOL:g})" + ("" if routes_ok is None else ", routes equal")
-            + f"; cache placements kept; collectives a step {dec[0]['collectives'][0]} the same at twice the depth; "
-            f"{[round(x) for x in rates]} tokens/s a rank (one card alone {single_rates[arch]:.0f}; a correctness "
-            f"run: gloo carries CUDA tensors through the host); set-up {max(d['setup_s'] for d in dec):.1f} s, "
+            + f"; cache placements kept; collectives a step {dec[0]['collectives'][0]} the same at twice the depth "
+            f"and = torch's CommDebugMode; {[round(x) for x in rates]} tokens/s a rank (one card alone "
+            f"{single_rates[arch]:.0f}; {_mm_note(backend)}); set-up {max(d['setup_s'] for d in dec):.1f} s, "
             f"steps {max(d['step_s'] for d in dec):.1f} s; max_memory_allocated "
             f"{[round(d['max_memory_allocated'] / 2**30, 3) for d in dec]} GiB — {smi}")
         res[arch] = {"gap_worst": max(gaps), "gaps": gaps, "routes_equal": routes_ok, "placements_kept": True,
@@ -2474,7 +2715,7 @@ def _report_decode(ranks: list, single_rates: dict, setup: dict, where: str, smi
                      "param_bytes": [d["param_bytes"] for d in dec], "cache_bytes": [d["cache_bytes"] for d in dec]}
     return {"mesh": [2, 2], "axes": ["data", "model"], "layers": MM_LAYERS, "batch": setup["dec_batch"],
             "cache_depth": setup["dec_depth"], "steps": setup["dec_steps"], "tol": ZOO_CPU_RTOL, "archs": res,
-            "note": "a correctness run, not a measurement of communication"}
+            "note": _mm_note(backend)}
 
 
 def _report_dryrun(ranks: list, host_recs: dict, setup: dict, smi: str) -> dict:
@@ -2520,18 +2761,117 @@ def _report_dryrun(ranks: list, host_recs: dict, setup: dict, smi: str) -> dict:
     return {"ranks": res, "host": host, "note": "predictions against published peaks, not measurements"}
 
 
+def _report_hybrid(ranks: list, oracle: dict, setup: dict, where: str, smi: str) -> dict:
+    """(a)'s checks and numbers from the ranks' results and the oracle's."""
+    steps, batch, seq, tau = (setup[k] for k in ("steps", "batch", "seq", "tau"))
+    oracle_losses, n_qwen, oracle_a_s = oracle["losses_a"], oracle["n_qwen"], oracle["s_a"]
+    published = _mm_configs(setup)[2]
+    hyb = [r["hybrid"] for r in ranks]
+    losses = hyb[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle_losses))
+    gaps = {leaf: max(h["leaves"][leaf][0] for h in hyb) for leaf in hyb[0]["leaves"]}
+    worst = max(gaps, key=gaps.get)
+    param_gap, reach = gaps[worst], 2 * MM_LR * steps
+    param_mean = (sum(v[1] for h in hyb for v in h["leaves"].values())
+                  / sum(v[2] for h in hyb for v in h["leaves"].values()))
+    syncs = hyb[0]["syncs"]
+    log(f"[mmesh] (a) qwen2.5-3b (published width, {MM_LAYERS} of {published['qwen2.5-3b']} layers, "
+        f"{n_qwen / 1e6:.1f} M parameters) through train(mesh=...) on (2, 1, 2) (pod, data, model), {where}: "
+        f"{steps} adamw steps of {batch} × {seq} fp32 tokens, τ = {tau}: losses {losses} vs the FedAvg "
+        f"oracle's {oracle_losses} (worst relative {loss_rel:.3g}, limit {MM_LOSS_RTOL:g}); final parameters mean |Δ| "
+        f"{param_mean:.3g} (limit {MM_PARAM_MEAN_ATOL:g}), max |Δ| {param_gap:.3g} at {worst} (limit 2·lr·steps = "
+        f"{reach:.3g}); per sync: drift before "
+        f"{[s['drift_before'] for s in syncs]}, spread after {[s['spread_after'] for s in syncs]}, "
+        f"{[round(s['sync_ms'], 1) for s in syncs]} ms; {hyb[0]['tokens_per_s']:.0f} tokens/s "
+        f"({hyb[0]['tokens_per_s_without_checks']:.0f} without the drift checks); max_memory_allocated per rank "
+        f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in hyb]} GiB — {smi}")
+    check(all(h["losses"] == losses for h in hyb), "(a): the ranks report different losses")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"(a): the losses are {losses}")
+    check(loss_rel <= MM_LOSS_RTOL, f"(a): the losses are {loss_rel} from the oracle's")
+    check(param_mean <= MM_PARAM_MEAN_ATOL, f"(a): the final parameters are {param_mean} from the oracle's on average")
+    check(param_gap <= reach, f"(a): the final {worst} is {param_gap} from the oracle's")
+    for h in hyb:
+        check(len(h["syncs"]) == steps // tau, f"(a): {len(h['syncs'])} syncs, expected {steps // tau}")
+        check(all(s["drift_before"] > 0 for s in h["syncs"]), f"(a): the pods did not drift before a sync: {h['syncs']}")
+        check(all(s["spread_after"] == 0 for s in h["syncs"]), f"(a): the pods differ after a sync: {h['syncs']}")
+    turns = hyb[0]["tau_turns"]
+    tau_rates = {key: [t[key] for t in turns] for key in (turns[0] if turns else ())}
+    if turns:
+        med = {key: statistics.median(v) for key, v in tau_rates.items()}
+        log(f"[mmesh] (a) tokens/s of train(mesh=...) in {len(turns)} turns of {setup['tau_steps']} steps from the same "
+            f"weights, {where}: τ = 1 {tau_rates['tau1']}, τ = {tau} {tau_rates[f'tau{tau}']} (medians "
+            f"{med['tau1']:.0f} / {med[f'tau{tau}']:.0f}, ratio τ = 1 / τ = {tau} {med['tau1'] / med[f'tau{tau}']:.4f}) "
+            f"— {smi}")
+        check(all(v > 0 for v in med.values()), f"(a): tokens/s in turns {tau_rates}")
+    return {"arch": "qwen2.5-3b", "mesh": [2, 1, 2], "axes": ["pod", "data", "model"],
+            "entry": "repro_torch.train.loop.train(mesh=...)", "layers": MM_LAYERS,
+            "published_layers": published["qwen2.5-3b"],
+            "reduced": [f"n_layers {published['qwen2.5-3b']} -> {MM_LAYERS}"], "params": n_qwen,
+            "batch": batch, "seq_len": seq, "steps": steps, "tau": tau, "optimizer": f"adamw({MM_LR:g})",
+            "losses": losses, "oracle_losses": oracle_losses, "loss_rel": loss_rel, "param_gap": param_gap,
+            "param_gap_leaf": worst, "param_mean_gap": param_mean, "leaf_gaps": gaps, "syncs_rank0": syncs,
+            "sync_ms": statistics.median(s["sync_ms"] for h in hyb for s in h["syncs"]),
+            "tokens_per_s": hyb[0]["tokens_per_s"],
+            "tokens_per_s_without_checks": hyb[0]["tokens_per_s_without_checks"],
+            "tokens_per_s_tau_turns": tau_rates, "tau_turn_steps": setup["tau_steps"],
+            "max_memory_allocated": [h["max_memory_allocated"] for h in hyb], "oracle_s": oracle_a_s}
+
+
+def _report_moe(ranks: list, oracle: dict, setup: dict, where: str, smi: str) -> dict:
+    """(b)'s checks and numbers from the ranks' results and the oracle's."""
+    seq, moe_batch = setup["seq"], setup["moe_batch"]
+    oracle_b_loss, n_deepseek, oracle_b_s = oracle["loss_b"], oracle["n_deepseek"], oracle["s_b"]
+    published = _mm_configs(setup)[2]
+    moe = [r["moe"] for r in ranks]
+    loss_b = moe[0]["loss"]
+    loss_b_rel = abs(loss_b - oracle_b_loss) / abs(oracle_b_loss)
+    grad_rel = {leaf: max(m["leaves"][leaf][0] for m in moe) / max(max(m["leaves"][leaf][1] for m in moe), 1e-30)
+                for leaf in moe[0]["leaves"]}
+    worst = max(grad_rel, key=grad_rel.get)
+
+    def share(key):
+        routed = sum(m["copies"][key]["routed"] for m in moe)
+        return sum(m["copies"][key]["dropped"] for m in moe) / max(routed, 1)
+
+    shares = {key: share(key) for key in ("cf8", "cf2", "cf1")}
+    log(f"[mmesh] (b) deepseek-v2-lite-16b (published width, 64 experts top-6, {MM_LAYERS} of "
+        f"{published['deepseek-v2-lite-16b']} layers, {n_deepseek / 1e9:.3f} B parameters) on (2, 2) (data, model), "
+        f"{where}: one launch/steps.make_train_step step of {moe_batch} × {seq} at cf = 8: loss {loss_b:.7f} vs "
+        f"the single-device step's {oracle_b_loss:.7f} (relative {loss_b_rel:.3g}, limit {ZOO_CPU_RTOL:g}); gradients, "
+        f"worst leaf {worst} {grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves; dropped "
+        f"copies {shares}; the step {moe[0]['step_s']:.2f} s ({moe[0]['tokens_per_s']:.0f} tokens/s); all_to_all of "
+        f"{moe[0]['all_to_all_bytes'] / 2**20:.1f} MiB over 'model' {[round(m['all_to_all_ms'], 2) for m in moe]} ms; "
+        f"max_memory_allocated per rank {[round(m['max_memory_allocated'] / 2**30, 2) for m in moe]} GiB — {smi}")
+    check(math.isfinite(loss_b) and loss_b_rel <= ZOO_CPU_RTOL, f"(b): the loss is {loss_b_rel} from the oracle's")
+    check(grad_rel[worst] <= ZOO_GRAD_RTOL, f"(b): the gradient of {worst} is {grad_rel[worst]} from the oracle's")
+    check(shares["cf8"] == 0.0, f"(b): copies dropped at cf = 8: {shares}")
+    check(all(m["copies"]["cf8"]["routed"] > 0 for m in moe), "(b): a rank routed no copy through moe_ep")
+    return {"arch": "deepseek-v2-lite-16b", "mesh": [2, 2], "axes": ["data", "model"],
+            "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, ...)", "layers": MM_LAYERS,
+            "published_layers": published["deepseek-v2-lite-16b"],
+            "reduced": [f"n_layers {published['deepseek-v2-lite-16b']} -> {MM_LAYERS}"], "params": n_deepseek,
+            "batch": moe_batch, "seq_len": seq, "cf": 8.0, "loss": loss_b, "oracle_loss": oracle_b_loss,
+            "loss_rel": loss_b_rel, "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst,
+            "dropped_share": shares, "step_s": moe[0]["step_s"], "tokens_per_s": moe[0]["tokens_per_s"],
+            "all_to_all_ms": [m["all_to_all_ms"] for m in moe], "all_to_all_bytes": moe[0]["all_to_all_bytes"],
+            "max_memory_allocated": [m["max_memory_allocated"] for m in moe], "oracle_s": oracle_b_s}
+
+
 def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None = None) -> dict:
-    """The model mesh at published width, depth cut to ``MM_LAYERS``: the
-    card-side oracles first, in this process (their results kept on the
-    host, their memory freed), then ``MM_RANKS`` spawned processes in a
+    """The model mesh at published width, depth cut to ``MM_LAYERS``: a
+    world-size-1 model mesh in this process (``_mm_nccl1``), the card-side
+    oracles, also in this process (their results kept on the host, their
+    memory freed), then ``MM_RANKS`` spawned processes in a
     ``ranks_backend`` group — gloo with CUDA tensors: four ranks on the one
     card; NCCL (``--mesh-nccl``): a card each — run (a) the hybrid-2D
     trainer, (b) the expert-parallel MoE, (c) decode on a (2, 2) mesh and
     (d) the dry run at (c)'s shape against what (c) held and counted
     (``_mm_hybrid``, ``_mm_moe``, ``_mm_decode``, ``_mm_dryrun``; the parts
     ``setup`` names), while (d)'s full-width dry run (``dryrun_host``) runs
-    beside them in a process of its own. ``setup``: ``_mm_setup()`` (the
+    beside them in a process of its own; over NCCL (a card a rank) (a) also
+    times τ = 1 against τ = ``MM_TAU``. ``setup``: ``_mm_setup()`` (the
     card, published widths, every part) unless a caller passes its own.
+    Each part reports (and fails) on its own; the phase fails if any did.
     Returns the numbers for the phase's JSON line."""
     import tempfile
 
@@ -2539,6 +2879,7 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
 
     from repro_torch import resolve_device
     from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import plain_all_gather_needed
     from repro_torch.launch.steps import make_train_step as steps_train_step
     from repro_torch.models import init_params
     from repro_torch.optim.sgd import adamw
@@ -2547,16 +2888,17 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
 
     started = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for fp32 matmuls")
-    setup = setup or _mm_setup()
+    # (a)'s τ turns time communication: only where each rank has a card of its own
+    setup = {**(setup or _mm_setup()), "tau_turns": 0 if ranks_backend == "gloo" else MM_TAU_TURNS}
     parts = setup["parts"]
     device = resolve_device(setup["device"])
-    qwen, deepseek, published = _mm_configs(setup)
+    qwen, deepseek, _ = _mm_configs(setup)
     steps, batch, seq, tau, moe_batch = (setup[k] for k in ("steps", "batch", "seq", "tau", "moe_batch"))
     where = ("gloo, CUDA tensors, 4 processes on one card" if ranks_backend == "gloo"
              else f"{ranks_backend}, a card a rank")
-    out = {"card": smi, "ranks": where, "dtype": "float32", "tf32": False,
-           "note": "correctness runs, not measurements of communication: gloo moves each CUDA tensor through the "
-                   "host, and four processes share one card"}
+    out = {"card": smi, "ranks": where, "dtype": "float32", "tf32": False, "note": _mm_note(ranks_backend)}
+    out["nccl1"] = _mm_nccl1(setup, smi)
+    oracle = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         if "hybrid" in parts:
@@ -2592,9 +2934,9 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-            oracle_a_s = time.perf_counter() - t0
+            oracle.update(losses_a=oracle_losses, n_qwen=n_qwen, s_a=time.perf_counter() - t0)
             log(f"[mmesh] oracle (a) on the card: qwen2.5-3b, 2 pods × {steps} steps, losses {oracle_losses} "
-                f"({oracle_a_s:.1f} s)")
+                f"({oracle['s_a']:.1f} s)")
         if "moe" in parts:
             # (b)'s oracle: the single-device step's loss and gradients
             t0 = time.perf_counter()
@@ -2605,15 +2947,15 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
             toks, targs = next(MarkovTextStream(deepseek.vocab_size, seed=0).batches(moe_batch, seq))
             grads, _, loss = steps_train_step(deepseek, None, opt=_grad_optimizer())(
                 card, (), torch.from_numpy(toks).to(device), torch.from_numpy(targs).to(device))
-            oracle_b_loss = float(loss)
+            oracle.update(loss_b=float(loss), n_deepseek=n_deepseek)
             _save_leaves(tmp / "oracle_b", grads)
             del card, grads, loss
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-            oracle_b_s = time.perf_counter() - t0
+            oracle["s_b"] = time.perf_counter() - t0
             log(f"[mmesh] oracle (b) on the card: deepseek-v2-lite-16b one step of {moe_batch} × {seq}, loss "
-                f"{oracle_b_loss:.7f} ({oracle_b_s:.1f} s)")
+                f"{oracle['loss_b']:.7f} ({oracle['s_b']:.1f} s)")
         if "decode" in parts:
             t0 = time.perf_counter()
             single_rates = _decode_oracle(tmp / "oracle_c", setup, device)
@@ -2634,6 +2976,10 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
         except BaseException:
             if host_dry is not None:
                 host_dry.kill()
+            for r in range(MM_RANKS):  # what the ranks that got to the end wrote of their parts' faults
+                if (tmp / f"mm_rank{r}.json").exists():
+                    for part, tb in json.loads((tmp / f"mm_rank{r}.json").read_text())["errors"].items():
+                        log(f"[mmesh] rank {r}, part {part}:\n{tb}")
             raise
         spawned_s = time.perf_counter() - t0
         ranks = [json.loads((tmp / f"mm_rank{r}.json").read_text()) for r in range(MM_RANKS)]
@@ -2643,91 +2989,35 @@ def model_mesh_phase(smi: str, ranks_backend: str = "gloo", setup: dict | None =
             host_recs = {"exitcode": host_dry.exitcode, "recs": json.loads((tmp / "host_dry.json").read_text())
                          if host_dry.exitcode == 0 else {}}
 
-    if "hybrid" in parts:
-        # (a) the hybrid-2D trainer
-        hyb = [r["hybrid"] for r in ranks]
-        losses = hyb[0]["losses"]
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle_losses))
-        gaps = {leaf: max(h["leaves"][leaf][0] for h in hyb) for leaf in hyb[0]["leaves"]}
-        worst = max(gaps, key=gaps.get)
-        param_gap, reach = gaps[worst], 2 * MM_LR * steps
-        param_mean = (sum(v[1] for h in hyb for v in h["leaves"].values())
-                      / sum(v[2] for h in hyb for v in h["leaves"].values()))
-        syncs = hyb[0]["syncs"]
-        log(f"[mmesh] (a) qwen2.5-3b (published width, {MM_LAYERS} of {published['qwen2.5-3b']} layers, "
-            f"{n_qwen / 1e6:.1f} M parameters) through train(mesh=...) on (2, 1, 2) (pod, data, model), {where}: "
-            f"{steps} adamw steps of {batch} × {seq} fp32 tokens, τ = {tau}: losses {losses} vs the FedAvg "
-            f"oracle's {oracle_losses} (worst relative {loss_rel:.3g}, limit {MM_LOSS_RTOL:g}); final parameters mean |Δ| "
-            f"{param_mean:.3g} (limit {MM_PARAM_MEAN_ATOL:g}), max |Δ| {param_gap:.3g} at {worst} (limit 2·lr·steps = "
-            f"{reach:.3g}); per sync: drift before "
-            f"{[s['drift_before'] for s in syncs]}, spread after {[s['spread_after'] for s in syncs]}, "
-            f"{[round(s['sync_ms'], 1) for s in syncs]} ms; {hyb[0]['tokens_per_s']:.0f} tokens/s "
-            f"({hyb[0]['tokens_per_s_without_checks']:.0f} without the drift checks); max_memory_allocated per rank "
-            f"{[round(h['max_memory_allocated'] / 2**30, 2) for h in hyb]} GiB — {smi}")
-        check(all(h["losses"] == losses for h in hyb), "(a): the ranks report different losses")
-        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"(a): the losses are {losses}")
-        check(loss_rel <= MM_LOSS_RTOL, f"(a): the losses are {loss_rel} from the oracle's")
-        check(param_mean <= MM_PARAM_MEAN_ATOL, f"(a): the final parameters are {param_mean} from the oracle's on average")
-        check(param_gap <= reach, f"(a): the final {worst} is {param_gap} from the oracle's")
-        for h in hyb:
-            check(len(h["syncs"]) == steps // tau, f"(a): {len(h['syncs'])} syncs, expected {steps // tau}")
-            check(all(s["drift_before"] > 0 for s in h["syncs"]), f"(a): the pods did not drift before a sync: {h['syncs']}")
-            check(all(s["spread_after"] == 0 for s in h["syncs"]), f"(a): the pods differ after a sync: {h['syncs']}")
-        out["hybrid"] = {"arch": "qwen2.5-3b", "mesh": [2, 1, 2], "axes": ["pod", "data", "model"],
-                         "entry": "repro_torch.train.loop.train(mesh=...)", "layers": MM_LAYERS,
-                         "published_layers": published["qwen2.5-3b"],
-                         "reduced": [f"n_layers {published['qwen2.5-3b']} -> {MM_LAYERS}"], "params": n_qwen,
-                         "batch": batch, "seq_len": seq, "steps": steps, "tau": tau, "optimizer": f"adamw({MM_LR:g})",
-                         "losses": losses, "oracle_losses": oracle_losses, "loss_rel": loss_rel, "param_gap": param_gap,
-                         "param_gap_leaf": worst, "param_mean_gap": param_mean, "leaf_gaps": gaps, "syncs_rank0": syncs,
-                         "sync_ms": statistics.median(s["sync_ms"] for h in hyb for s in h["syncs"]),
-                         "tokens_per_s": hyb[0]["tokens_per_s"],
-                         "tokens_per_s_without_checks": hyb[0]["tokens_per_s_without_checks"],
-                         "max_memory_allocated": [h["max_memory_allocated"] for h in hyb], "oracle_s": oracle_a_s}
-
-    if "moe" in parts:
-        # (b) the expert-parallel MoE
-        moe = [r["moe"] for r in ranks]
-        loss_b = moe[0]["loss"]
-        loss_b_rel = abs(loss_b - oracle_b_loss) / abs(oracle_b_loss)
-        grad_rel = {leaf: max(m["leaves"][leaf][0] for m in moe) / max(max(m["leaves"][leaf][1] for m in moe), 1e-30)
-                    for leaf in moe[0]["leaves"]}
-        worst = max(grad_rel, key=grad_rel.get)
-
-        def share(key):
-            routed = sum(m["copies"][key]["routed"] for m in moe)
-            return sum(m["copies"][key]["dropped"] for m in moe) / max(routed, 1)
-
-        shares = {key: share(key) for key in ("cf8", "cf2", "cf1")}
-        log(f"[mmesh] (b) deepseek-v2-lite-16b (published width, 64 experts top-6, {MM_LAYERS} of "
-            f"{published['deepseek-v2-lite-16b']} layers, {n_deepseek / 1e9:.3f} B parameters) on (2, 2) (data, model), "
-            f"{where}: one launch/steps.make_train_step step of {moe_batch} × {seq} at cf = 8: loss {loss_b:.7f} vs "
-            f"the single-device step's {oracle_b_loss:.7f} (relative {loss_b_rel:.3g}, limit {ZOO_CPU_RTOL:g}); gradients, "
-            f"worst leaf {worst} {grad_rel[worst]:.3g} (limit {ZOO_GRAD_RTOL:g}) over {len(grad_rel)} leaves; dropped "
-            f"copies {shares}; the step {moe[0]['step_s']:.2f} s ({moe[0]['tokens_per_s']:.0f} tokens/s); all_to_all of "
-            f"{moe[0]['all_to_all_bytes'] / 2**20:.1f} MiB over 'model' {[round(m['all_to_all_ms'], 2) for m in moe]} ms; "
-            f"max_memory_allocated per rank {[round(m['max_memory_allocated'] / 2**30, 2) for m in moe]} GiB — {smi}")
-        check(math.isfinite(loss_b) and loss_b_rel <= ZOO_CPU_RTOL, f"(b): the loss is {loss_b_rel} from the oracle's")
-        check(grad_rel[worst] <= ZOO_GRAD_RTOL, f"(b): the gradient of {worst} is {grad_rel[worst]} from the oracle's")
-        check(shares["cf8"] == 0.0, f"(b): copies dropped at cf = 8: {shares}")
-        check(all(m["copies"]["cf8"]["routed"] > 0 for m in moe), "(b): a rank routed no copy through moe_ep")
-        out["moe"] = {"arch": "deepseek-v2-lite-16b", "mesh": [2, 2], "axes": ["data", "model"],
-                      "entry": "repro_torch.launch.steps.make_train_step(cfg, mesh, ...)", "layers": MM_LAYERS,
-                      "published_layers": published["deepseek-v2-lite-16b"],
-                      "reduced": [f"n_layers {published['deepseek-v2-lite-16b']} -> {MM_LAYERS}"], "params": n_deepseek,
-                      "batch": moe_batch, "seq_len": seq, "cf": 8.0, "loss": loss_b, "oracle_loss": oracle_b_loss,
-                      "loss_rel": loss_b_rel, "grad_rel_worst": grad_rel[worst], "grad_rel_worst_leaf": worst,
-                      "dropped_share": shares, "step_s": moe[0]["step_s"], "tokens_per_s": moe[0]["tokens_per_s"],
-                      "all_to_all_ms": [m["all_to_all_ms"] for m in moe], "all_to_all_bytes": moe[0]["all_to_all_bytes"],
-                      "max_memory_allocated": [m["max_memory_allocated"] for m in moe], "oracle_s": oracle_b_s}
-    if "decode" in parts:
-        out["decode"] = _report_decode(ranks, single_rates, setup, where, smi)
-    if "dryrun" in parts:
-        out["dryrun"] = _report_dryrun(ranks, host_recs, setup, smi)
+    # each part's report; a part that raised on a rank, or failed a check,
+    # does not keep the others from reporting: the phase fails at the end
+    failed = []
+    probes = [r["all_gather_probe"] for r in ranks]
+    plain = [r["plain_all_gather"] for r in ranks]
+    log(f"[mmesh] all-gather probe ({where}): DTensor's functional all-gather against c10d's, every case bitwise "
+        f"equal on every rank: {all(all(p.values()) for p in probes)}; plain all-gather registered {plain}")
+    if not (all(all(p.values()) for p in probes) and plain == [plain_all_gather_needed(ranks_backend)] * MM_RANKS):
+        failed.append(f"the all-gather probe: {probes}, plain all-gather registered {plain}")
+    out["all_gather_probe"] = {"cases": probes[0], "plain_all_gather": plain}
+    reports = {"hybrid": lambda: _report_hybrid(ranks, oracle, setup, where, smi),
+               "moe": lambda: _report_moe(ranks, oracle, setup, where, smi),
+               "decode": lambda: _report_decode(ranks, single_rates, setup, where, smi, ranks_backend),
+               "dryrun": lambda: _report_dryrun(ranks, host_recs, setup, smi)}
+    for part in parts:
+        errors = {r: rank["errors"][part] for r, rank in enumerate(ranks) if part in rank["errors"]}
+        if errors:
+            r, tb = next(iter(errors.items()))
+            log(f"[mmesh] part {part} raised on ranks {sorted(errors)}; rank {r}:\n{tb}")
+            failed.append(f"part {part} raised on ranks {sorted(errors)}")
+            continue
+        with deferred_checks() as part_failed:
+            out[part] = reports[part]()
+        failed += part_failed
     out["devices"] = sorted({r["device"] for r in ranks})
     out["spawned_s"] = spawned_s
     out["phase_s"] = time.perf_counter() - started
     log(f"[mmesh] the phase took {out['phase_s']:.1f} s (spawned ranks {spawned_s:.1f} s)")
+    check(not failed, f"the model_mesh phase ({where}): " + " | ".join(failed))
     return out
 
 
@@ -2991,15 +3281,19 @@ def device_line() -> None:
 
 
 def mesh_nccl_main(smi: str) -> None:
-    """``--mesh-nccl``: the mesh phase alone, its 2 × 2 mesh over NCCL with
-    one rank a card (needs four cards), after building the kernels."""
+    """``--mesh-nccl``: the mesh phase and the model_mesh phase alone, their
+    four ranks over NCCL with one rank a card (needs four cards), after
+    building the kernels; (a) also times τ = 1 against τ = ``MM_TAU`` in
+    turns."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.device_count() >= MESH_P * MESH_P,
           f"--mesh-nccl needs {MESH_P * MESH_P} cards, found {torch.cuda.device_count()}")
     _build.build_all()
-    mesh = mesh_phase(smi, ranks_backend="nccl")
-    model_mesh = model_mesh_phase(smi, ranks_backend="nccl")
+    cards = smi.splitlines()  # nvidia-smi prints a line a card: the phases' lines name them once
+    label = f"{len(cards)} × {cards[0]}" if len(set(cards)) == 1 else "; ".join(cards)
+    mesh = mesh_phase(label, ranks_backend="nccl")
+    model_mesh = model_mesh_phase(label, ranks_backend="nccl")
     print(smi, flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"model_mesh": model_mesh}), flush=True)

@@ -140,7 +140,7 @@ class StepCounter(TorchDispatchMode):
         if any(t is DTensor for t in types):
             return NotImplemented
         kwargs = kwargs or {}
-        if func.namespace in ("_c10d_functional", "c10d"):
+        if func.namespace in rl._COLLECTIVE_NAMESPACES:
             return self._collectives.__torch_dispatch__(func, types, args, kwargs)
         out = func(*args, **kwargs)
         if active_fake_mode() is not self._entry_mode or _in_propagation():  # DTensor's, on global shapes

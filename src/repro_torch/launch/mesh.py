@@ -37,13 +37,21 @@ def _all_gather_into_tensor(input, group_size, group_name):
 _PLAIN_ALL_GATHER: list = []
 
 
+def plain_all_gather_needed(backend: str) -> bool:
+    """Whether a mesh over a default group of ``backend`` must gather through
+    the plain c10d all-gather: only gloo's. DTensor gathers shards through the
+    functional all-gather, which gloo runs as a coalesced all-gather that
+    crashes the process (SIGSEGV) on CUDA tensors (torch 2.11); gloo's plain
+    all-gather of CUDA tensors works. NCCL runs the functional all-gather
+    itself, asynchronously on its stream as DTensor expects: the model mesh
+    held every oracle with it on four H100s, one card a rank. The fake
+    backend of the dry run moves nothing."""
+    return "gloo" in str(backend).lower()
+
+
 def _use_plain_all_gather() -> None:
-    """DTensor gathers shards through the functional all-gather, which gloo
-    runs as a coalesced all-gather that crashes the process (SIGSEGV) on
-    CUDA tensors (torch 2.11); gloo's plain all-gather of CUDA tensors
-    works. So every model mesh, on every backend and device, gathers
-    through the plain one: its kernel replaces the functional op's for CPU
-    and CUDA tensors (once a process)."""
+    """Replace the functional all-gather's kernel for CPU and CUDA tensors by
+    the plain c10d one (once a process: a gloo mesh's, ``plain_all_gather_needed``)."""
     if not _PLAIN_ALL_GATHER:
         lib = torch.library.Library("_c10d_functional", "IMPL")
         for key in ("CPU", "CUDA"):
@@ -85,7 +93,8 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device=None) -> Dev
             f"default process group has {world}; {how}"
         )
     device_type = resolve_device(device).type
-    _use_plain_all_gather()
+    if plain_all_gather_needed(dist.get_backend()):
+        _use_plain_all_gather()
     key = (dist.group.WORLD, device_type, shape, axes)
     mesh = _MESHES.get(key)
     if mesh is None:

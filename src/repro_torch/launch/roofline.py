@@ -96,9 +96,12 @@ class CollectiveStats:
         return sum(self.bytes_by_kind.values())
 
 
-# the collective ops a step can issue: DTensor's functional ones and the
-# c10d ones (moe_ep's all_to_all and gathers, the plain all-gather that
-# launch/mesh.py installs), by op name
+# the collective ops a step can issue: DTensor's functional ones, its own
+# all-to-all (``_dtensor::shard_dim_alltoall``: a Shard(i) → Shard(j)
+# redistribute on a CUDA mesh, whose all-to-all runs inside the op where no
+# dispatch mode sees it; a CPU mesh gathers and chunks instead) and the c10d
+# ones (moe_ep's all_to_all and gathers, the plain all-gather that
+# launch/mesh.py installs on gloo), by op name
 _KIND_OF = {
     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce", "allreduce_": "all-reduce",
     "allreduce_coalesced_": "all-reduce",
@@ -109,11 +112,13 @@ _KIND_OF = {
     "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute", "broadcast": "collective-permute",
     "broadcast_": "collective-permute",
 }
 # bookkeeping ops of the same namespaces: no data moves between ranks
-_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "barrier", "monitored_barrier_"}
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "barrier", "monitored_barrier_", "mesh_get_process_group"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "_dtensor")
 
 
 def _nbytes(x) -> int:
@@ -134,16 +139,17 @@ class _CollectiveCounter(TorchDispatchMode):
             # DTensor runs first and issues its collectives, which come back here
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if func.namespace in ("_c10d_functional", "c10d"):
+        if func.namespace in _COLLECTIVE_NAMESPACES:
             name = func._opname
             if name not in _NOT_COLLECTIVES:
                 kind = _KIND_OF.get(name)
                 if kind is None:
                     raise ValueError(f"count_collectives does not know the collective {func}")
                 # the output buffer's bytes, as the reference reads an HLO
-                # collective's result shape: the functional ops return it,
-                # the c10d ones write it into their first argument
-                nbytes = _nbytes(out if func.namespace == "_c10d_functional" else args[0])
+                # collective's result shape: the functional ops (and
+                # DTensor's all-to-all) return it, the c10d ones write it
+                # into their first argument
+                nbytes = _nbytes(args[0] if func.namespace == "c10d" else out)
                 self.stats.bytes_by_kind[kind] += nbytes
                 self.stats.count_by_kind[kind] += 1
                 if self.log is not None:
@@ -158,8 +164,9 @@ def count_collectives(log: list | None = None):
     counts an HLO collective's result shape the same way): yields the
     ``CollectiveStats``, filled as the block runs. ``log``, if given, gets
     one (kind, bytes) a collective, in order. Sees DTensor's functional
-    collectives and ``torch.distributed``'s own calls, on real and fake
-    tensors alike; a collective it does not know raises ``ValueError``."""
+    collectives, its all-to-all and ``torch.distributed``'s own calls, on
+    real and fake tensors alike; a collective it does not know raises
+    ``ValueError``."""
     stats = CollectiveStats({k: 0 for k in COLLECTIVE_KINDS}, {k: 0 for k in COLLECTIVE_KINDS}, False)
     with _CollectiveCounter(stats, log):
         yield stats

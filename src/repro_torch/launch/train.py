@@ -7,7 +7,8 @@ reduced smoke variant (``configs.reduced``). ``--mesh`` (e.g.
 mesh device: start them with ``torchrun --nproc-per-node N -m
 repro_torch.launch.train ...`` (the default ``--init-method env://``), or
 set ``RANK`` and ``WORLD_SIZE`` in each and pass ``--init-method
-file:///path/to/store``. Rank 0 prints.
+file:///path/to/store``. Rank 0 prints the tokens/s, on the card each
+rank's ``max_memory_allocated`` (bytes), and the losses.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
@@ -26,7 +28,11 @@ from repro_torch.train.loop import train
 def _mesh(arg: str, device, backend: str | None, init_method: str):
     """Parse ``2x1x2:pod,data,model``, join (or reuse) the default process
     group — a launcher sets ``WORLD_SIZE`` and ``RANK`` — and build the
-    mesh (which refuses, saying how to start the processes, without one)."""
+    mesh (which refuses, saying how to start the processes, without one).
+    The backend is NCCL on the card and gloo on the CPU unless ``backend``
+    names one; under NCCL the rank's card (``resolve_device``: one a rank)
+    is made current before the mesh is built, so NCCL's communicators and
+    DTensor use the card the rank's tensors live on. A failed join raises."""
     shape_s, axes_s = arg.split(":")
     shape = tuple(int(x) for x in shape_s.split("x"))
     axes = tuple(axes_s.split(","))
@@ -37,7 +43,23 @@ def _mesh(arg: str, device, backend: str | None, init_method: str):
         else:
             dist.init_process_group(backend, init_method=init_method, rank=int(os.environ["RANK"]),
                                     world_size=int(os.environ["WORLD_SIZE"]))
+        if backend == "nccl":
+            card = resolve_device(device)
+            torch.cuda.set_device(card if card.index is not None else resolve_device(None))
     return make_mesh(shape, axes, device=device)
+
+
+def _peaks(mesh, device) -> list[int] | None:
+    """``max_memory_allocated`` of every rank's card (rank 0's alone without
+    a mesh); None on the CPU. Collective on a mesh."""
+    if device.type != "cuda":
+        return None
+    mine = torch.tensor([torch.cuda.max_memory_allocated(device)], dtype=torch.int64, device=device)
+    if mesh is None:
+        return mine.tolist()
+    every = mine.new_empty((dist.get_world_size(),))
+    dist.all_gather_into_tensor(every, mine)
+    return every.tolist()
 
 
 def main(argv=None) -> None:
@@ -71,8 +93,10 @@ def main(argv=None) -> None:
         checkpoint_every=50 if args.checkpoint_dir else 0,
         device=args.device,
     )
+    peaks = _peaks(mesh, resolve_device(args.device))
     if mesh is None or dist.get_rank() == 0:
-        print(f"arch={cfg.name} steps={report.steps} tokens/s={report.tokens_per_s:.0f}")
+        print(f"arch={cfg.name} steps={report.steps} tokens/s={report.tokens_per_s:.0f}"
+              + ("" if peaks is None else f" max_memory_allocated={peaks}"))
         print("losses:", " ".join(f"{l:.4f}" for l in report.losses))
     if mesh is not None:
         dist.destroy_process_group()
