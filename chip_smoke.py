@@ -74,12 +74,27 @@ collectives the same at twice the depth and the same as torch's
 and cache bytes and collective counts held equal to (c)'s real ones, its
 peak beside ``max_memory_allocated``, with the full-width dry run of
 qwen2.5-3b × train_4k and deepseek-v2-lite-16b × decode_32k on the fake
-(16, 16) mesh beside them (predictions against published peaks); and prints
+(16, 16) mesh beside them (predictions against published peaks); then the
+paper's other datasets (``paper_phase``): news20 and epsilon at full size and
+url with its rows cut to 2^19 (full url under ``--paper``), each from
+``make_dataset`` at its registered statistics, through the engine at the main
+path's point in fp32 and at D = 2 in bf16 (rounds above the round graph's
+cycle cap run eagerly), the FedAvg, s-step and mini-batch SGD corners, and on
+news20 and url the logistic (λ > 0), squared-hinge and least-squares
+objectives through ``ExperimentSpec`` → ``Session.step_rounds`` (their
+corrections take the plain loop, on news20 inside the round graphs), every
+run held against the plain versions on the card with a control that must
+miss; the build seconds, host and device peaks, cycle and round walls per
+dataset and the kernels on one real bundle of each; and the sweep CLI on
+``examples/specs/url_sweep.json``'s three points at full url in a process of
+its own (started before the model mesh, its first point also opting into the
+Gram tuner), each report's loss finite and below log 2 and the tuner's cached
+geometry for url's rows (one ``{"paper": ...}`` JSON line); and prints
 
   * the GPU's name and power limit,
   * one JSON line each ``{"graph": ...}``, ``{"tune": ...}``, ``{"front_door": ...}``,
-    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"lm": ...}``, ``{"zoo": ...}`` and
-    ``{"model_mesh": ...}``,
+    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"paper": ...}``, ``{"lm": ...}``,
+    ``{"zoo": ...}`` and ``{"model_mesh": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
     bound and library yardstick,
@@ -100,7 +115,8 @@ machine with four cards: the same oracles and limits as on gloo, DTensor's
 functional all-gather held bitwise against c10d's on each mesh dim, and (a)'s
 tokens/s at τ = 1 and τ = 2 in turns; its walls, a pod sync's and an
 ``all_to_all``'s ms are measurements of the cards' communication.
-``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
+``--paper`` runs the paper phase alone, with full url and the sweep CLI after
+the in-process runs. ``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
 the model_mesh phase, ``--decode-mesh`` its part (c), ``--dryrun`` its parts (c)
 and (d). Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
@@ -111,6 +127,7 @@ CPU mode: without a CUDA device the script fails at once.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -3275,6 +3292,482 @@ def mesh_phase(smi: str, device=None, backend: str = "nccl", ranks_backend: str 
     return out
 
 
+# the paper phase: the paper's other datasets at full size (Table 6's news20,
+# epsilon and url) through the engine at the cells' point (P_R, S, B, TAU,
+# ETA), PAPER_ROUNDS rounds a run; the corners PAPER_CORNER_ROUNDS rounds each
+PAPER_DATASETS = ("news20", "epsilon", "url")
+PAPER_ROUNDS, PAPER_CORNER_ROUNDS = 8, 4
+# the s-step corner's depth: s·b = 512 rows a bundle
+PAPER_SSTEP_S = 16
+# the plain runs' panel width: url's 3.2 M columns in 50 panels a bundle (at
+# 512, 6,313 panels made the plain round take seconds); the walk's result
+# does not depend on it beyond the order of its float32 sums
+PAPER_PLAIN_BK = 1 << 16
+# url's rows in the default run (full url, 2,396,130 rows, under --paper):
+# make_skewed_csr with url's columns, mean width and skew, the rows cut to
+# 2^19 — generating full url took 83 s of the run's limit on the host of an
+# NVIDIA H100 80GB HBM3 (and the sweep CLI generates it again)
+PAPER_URL_ROWS = 1 << 19
+# the other objectives through the front door, each with its λ
+PAPER_OBJECTIVES = (("logistic", 1e-4), ("squared_hinge", 1e-3), ("least_squares", 1e-4))
+PAPER_FRONT_DOOR = ("news20", "url")
+# the sweep CLI's spec, its points one round each; the first also opts into
+# the Gram tuner (bk = null), so its Session tunes and caches a geometry
+PAPER_SWEEP_SPEC = "examples/specs/url_sweep.json"
+PAPER_SWEEP_TIMEOUT_S = 900
+
+
+def _host_peak_gb() -> float:
+    """The process's peak resident set so far (``ru_maxrss``), in GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def paper_url_name(rows: int | None) -> str:
+    """The registered name of url with its rows cut to ``rows`` (None: url
+    itself). The cut is registered in this process only, with url's
+    columns, mean width and skew, so ``make_dataset`` and every spec take
+    it by name."""
+    from repro_torch.sparse import synthetic
+
+    if rows is None:
+        return "url"
+    full = synthetic.DATASET_STATS["url"]
+    name = f"url-rows{rows}"
+    synthetic.SM_STATS[name] = dataclasses.replace(full, name=name, m=rows)
+    return name
+
+
+def start_sweep_cli(device=None) -> dict:
+    """``python -m repro_torch.launch.sweep`` on url's spec in a process of
+    its own, started now and collected by ``finish_sweep_cli``: the three
+    points of ``PAPER_SWEEP_SPEC``, the first with ``bk`` null, into a
+    temporary directory that also holds the tuner's cache."""
+    import tempfile
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro-torch-sweep-"))
+    points = json.loads((ROOT / PAPER_SWEEP_SPEC).read_text())
+    points[0]["schedule"]["bk"] = None
+    spec = tmp / "url_sweep.json"
+    spec.write_text(json.dumps(points, indent=2))
+    cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--spec", str(spec), "--out", str(tmp / "reports.json")]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_TORCH_TUNE_CACHE=str(tmp / "tune"))
+    log(f"[paper] sweep CLI started beside the run: {' '.join(cmd[1:])} ({PAPER_SWEEP_SPEC}'s points, the first "
+        f"with bk = null)")
+    with open(tmp / "cli.log", "w") as sink:  # a file, not a pipe: nothing reads it until the end
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=sink, stderr=subprocess.STDOUT)
+    return {"proc": proc, "tmp": tmp, "points": points, "t0": time.time()}
+
+
+def stop_sweep_cli(handle: dict | None) -> None:
+    """Kill the sweep CLI's process if it still runs (a failed run)."""
+    if handle is not None and handle["proc"].poll() is None:
+        handle["proc"].kill()
+        handle["proc"].wait()
+
+
+def finish_sweep_cli(handle: dict) -> dict:
+    """Wait for the sweep CLI and check what it wrote: a report with a finite
+    loss for every point, and the tuner's record for url's profile at the
+    first point's autotuned (s, b)."""
+    import shutil
+
+    from repro_torch.api import plan
+    from repro_torch.api.spec import ExperimentSpec, dataset_stats
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.ell_gram import supported_tile_ks
+
+    try:
+        handle["proc"].wait(timeout=PAPER_SWEEP_TIMEOUT_S)
+    finally:
+        stop_sweep_cli(handle)
+    output = (handle["tmp"] / "cli.log").read_text()
+    for line in output.splitlines():
+        if line.startswith("["):
+            log(f"[paper] sweep CLI: {line}")
+    check(handle["proc"].returncode == 0, f"the sweep CLI exited {handle['proc'].returncode}:\n{output[-4000:]}")
+    tmp = handle["tmp"]
+    reports = json.loads((tmp / "reports.json").read_text())["reports"]
+    wall_s = (tmp / "reports.json").stat().st_mtime - handle["t0"]  # its start to its last write
+    check(len(reports) == len(handle["points"]), f"the sweep CLI wrote {len(reports)} reports for {len(handle['points'])} points")
+    out = {"wall_s": wall_s, "reports": []}
+    for point, rep in zip(handle["points"], reports):
+        check(rep["spec"]["name"] == point["name"] and math.isfinite(rep["final_loss"]) and rep["final_loss"] < math.log(2.0),
+              f"the sweep CLI's report of {point['name']}: final loss {rep['final_loss']}")
+        out["reports"].append({k: rep[k] for k in ("final_loss", "rounds_completed", "wall_time_s", "compile_time_s")}
+                              | {"name": point["name"], "s": rep["spec"]["schedule"]["s"], "b": rep["spec"]["schedule"]["b"],
+                                 "p_r": rep["spec"]["mesh"]["p_r"], "bk": rep["spec"]["schedule"]["bk"]})
+    # the first point: autotuned (s, b), and the tuner's record for url's rows
+    first = plan(ExperimentSpec.from_dict(handle["points"][0])).spec
+    profile = tune.PanelProfile.from_stats(dataset_stats(first.dataset), first.schedule, first.mesh.p_c)
+    records = [json.loads(p.read_text()) for p in sorted((tmp / "tune").glob("*.json"))]
+    check(len(records) == 1 and records[0]["profile"] == profile.to_dict()
+          and [records[0].get("tile"), records[0].get("ks")] in [list(g) for g in supported_tile_ks()],
+          f"the tuner cached {[r.get('profile') for r in records]}, not one geometry for {profile}")
+    rec = records[0]
+    out["tuned"] = {"profile": rec["profile"], "tile": rec.get("tile"), "ks": rec.get("ks"),
+                    "ms": rec["measured_s"] * 1e3, "s_b": [first.schedule.s, first.schedule.b]}
+    log(f"[paper] sweep CLI: {len(reports)} reports, final losses {[round(r['final_loss'], 6) for r in reports]} "
+        f"(log 2 = {math.log(2.0):.6f}); the first point autotuned to s = {first.schedule.s}, b = {first.schedule.b} and "
+        f"the tuner cached geometry ({rec.get('tile')}, {rec.get('ks')}) for {first.dataset}'s profile {rec['profile']} "
+        f"({rec['measured_s'] * 1e3:.5f} ms on the device); {wall_s:.1f} s from its start")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+@contextlib.contextmanager
+def gram_v_off_by_one_percent():
+    """Inside: every bundle's (G, v) comes out 1 % too large (the simulated
+    engine looks ``bundle_gram_v`` up when it runs; the round graphs key on
+    it and capture anew) — a fault the end-to-end limits must catch. G
+    alone is not enough on news20: its rows rarely share a column, G is
+    nearly empty, and a G 1 % off moved x by 9.69e-7 against a limit of
+    1.81e-6 (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    from repro_torch.core import engine
+
+    true_gram = engine.bundle_gram_v
+
+    def skewed(*args, **kwargs):
+        g, v = true_gram(*args, **kwargs)
+        return g * 1.01, v * 1.01
+
+    engine.bundle_gram_v = skewed
+    try:
+        yield
+    finally:
+        engine.bundle_gram_v = true_gram
+
+
+def _graphs_expected(cycle: int, rounds: int) -> dict:
+    """Captures and replays of a fresh run of ``rounds`` rounds from round 0:
+    each residue runs eagerly at its first sight and is captured (then
+    replayed) at its second; none above the cycle cap."""
+    from repro_torch.core import round_graph
+
+    if cycle > round_graph.CYCLE_CAP:
+        return {"captures": 0, "replays": 0}
+    return {"captures": max(min(cycle, rounds - cycle), 0), "replays": max(rounds - cycle, 0)}
+
+
+def _plain_gap(label: str, x, x_plain, controls: dict, limit_rel: float = X_TOL) -> dict:
+    """x against the all-plain run's, within ``limit_rel``·max |x_plain|;
+    each control (another run of the same inputs that must differ) outside
+    it. Logs and checks; returns the readings."""
+    x_max = float(x_plain.abs().max())
+    gap = float((x - x_plain).abs().max())
+    limit = limit_rel * x_max
+    ctl = {name: float((xc - x_plain).abs().max()) for name, xc in controls.items()}
+    log(f"[paper] {label}: kernels vs plain versions max |Δx| = {gap:.3g} with max |x| = {x_max:.4g} (limit "
+        f"{limit:.3g}); controls " + ", ".join(f"{k} {v:.3g}" for k, v in ctl.items()))
+    check(bool(torch.isfinite(x).all()) and x_max > 0 and gap <= limit, f"{label}: x is {gap} from the plain run's")
+    for name, value in ctl.items():
+        check(value > limit, f"{label}: the control ({name}) is within the limit: {value}")
+    return {"gap": gap, "x_max": x_max, "limit": limit, "controls": ctl}
+
+
+def _paper_engine(name: str, tp, smi: str) -> dict:
+    """(a) the main path on ``tp`` at D = 0 fp32 and D = 2 bf16, each against
+    the all-plain run, with (G, v) off by 1 % as the control (the other wire
+    precision is read beside it: bf16 must move x); the rounds' walls eager
+    and graphed; the kernels' times on one real bundle."""
+    from repro_torch.core import round_graph
+    from repro_torch.core.engine import ParallelSGDSchedule, engine_loss, run_engine_chunk
+    from repro_torch.core.teams import global_problem
+    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    from repro_torch.kernels.ref import densify_bundle_ref
+    from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
+    from repro_torch.launch.roofline import probe_bound
+
+    x0 = torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device)
+    gp = global_problem(tp)
+    cycle = round_graph.round_cycle(tp.rows_local, S * B, TAU // S)
+    graphed = cycle <= round_graph.CYCLE_CAP
+    base = ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=PAPER_ROUNDS)
+    runs = {"fp32_d0": base, f"bf16_d{DELAY}": dataclasses.replace(base, delay=DELAY, precision="bf16")}
+    other = {"fp32_d0": dataclasses.replace(base, precision="bf16"), f"bf16_d{DELAY}": dataclasses.replace(base, delay=DELAY)}
+    expected = PAPER_ROUNDS * P_R * (TAU // S)
+    loss0 = float(engine_loss(gp, x0))
+    out = {"cycle": cycle, "cycle_cap": round_graph.CYCLE_CAP, "graphed": graphed, "loss_x0": loss0, "runs": {}}
+    log(f"[paper] {name}: teams {tuple(tp.indices.shape)}, cycle {cycle} rounds → "
+        + ("graphed (one CUDA graph a residue)" if graphed else f"eager (cycle > CYCLE_CAP = {round_graph.CYCLE_CAP})"))
+    xs = {}
+    for label, sched in runs.items():
+        mode = sched.precision
+        zero_launch_counts()
+        before = dict(round_graph.counts)
+        x = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sched)
+        sync()
+        got = launch_counts()
+        made = {k: round_graph.counts[k] - before[k] for k in before}
+        want_graphs = _graphs_expected(cycle, PAPER_ROUNDS)
+        want = {"ell_gram.fp32": expected * (mode == "fp32"), "ell_gram.bf16": expected * (mode == "bf16"),
+                "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
+        check(got == want, f"{name} {label}: launches {got}, expected {want}")
+        check(made == want_graphs, f"{name} {label}: round graphs {made}, expected {want_graphs}")
+        loss = float(engine_loss(gp, x))
+        check(math.isfinite(loss) and loss < loss0, f"{name} {label}: the loss after {PAPER_ROUNDS} rounds is {loss} (x = 0: {loss0})")
+        with plain_corrections():
+            x_plain = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, dataclasses.replace(sched, gram="blocked", bk=PAPER_PLAIN_BK))
+        sync()
+        check(launch_counts() == got, f"{name} {label}: the plain run launched a kernel")
+        with gram_v_off_by_one_percent():
+            x_skew = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sched)
+        x_other = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, other[label])
+        xs[label], xs[f"{label}_other"] = x, x_other
+        row = _plain_gap(f"{name} {label}", x, x_plain, {"(G, v) off by 1 %": x_skew})
+        row["other_wire_gap"] = float((x_other - x_plain).abs().max())
+        log(f"[paper] {name} {label}: the {other[label].precision} wire's run is {row['other_wire_gap']:.3g} from the "
+            f"plain run's")
+        # the wall of a run of PAPER_ROUNDS rounds: eager, and (after the
+        # warm-up runs above captured every residue) replayed from graphs
+        walls = {}
+        for how in ("eager", "graphed") if graphed else ("eager",):
+            run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sched)
+            samples = []
+            for _ in range(3):
+                with eager_rounds() if how == "eager" else contextlib.nullcontext():
+                    sync()
+                    t0 = time.perf_counter()
+                    run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sched)
+                    sync()
+                samples.append((time.perf_counter() - t0) * 1e3 / PAPER_ROUNDS)
+            walls[f"round_ms_{how}"] = statistics.median(samples)
+        row.update(walls, launches=got, launches_a_round=sum(got.values()) / PAPER_ROUNDS, graphs=made, loss=loss)
+        log(f"[paper] {name} {label}: {PAPER_ROUNDS} rounds, loss {loss0:.6f} → {loss:.6f} (log 2 = {math.log(2.0):.6f}); "
+            f"kernel launches {got} ({row['launches_a_round']:.0f} a round); round graphs {made}; wall a round "
+            + ", ".join(f"{k[9:]} {v:.3f} ms" for k, v in walls.items()) + f" (median of 3 runs) — {smi}")
+        out["runs"][label] = row
+    bf16_gap = float((xs[f"bf16_d{DELAY}"] - xs[f"bf16_d{DELAY}_other"]).abs().max())
+    out["bf16_vs_fp32_d2"] = bf16_gap
+    log(f"[paper] {name}: D = {DELAY} bf16 vs fp32 max |Δx| = {bf16_gap:.3g} (the rounding moved x)")
+    check(bf16_gap > 0.0, f"{name}: bf16 did not move x")
+
+    # the kernels on one real bundle of team 0 (its first S·B rows)
+    bi, bv = tp.indices[0, : S * B].contiguous(), tp.values[0, : S * B].contiguous()
+    x_in = xs["fp32_d0"]
+    gram_bound = probe_bound(bi, bv)
+    times = {}
+    for mode in ("fp32", "bf16"):
+        wire = torch.float32 if mode == "fp32" else torch.bfloat16
+
+        def library():
+            dense = densify_bundle_ref(bi, bv, tp.n).to(wire)
+            return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_in.to(wire)
+
+        g_k, v_k = ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode)
+        g_p, v_p = ell_gram_and_v_blocked(bi, bv, x_in, n=tp.n, bk=PAPER_PLAIN_BK, precision=mode)
+        err = max(errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0])
+        check(all(errors(a, b, GV_TOL)[2] for a, b in ((g_k, g_p), (v_k, v_p))),
+              f"ell_gram {mode} on a {name} bundle: max abs error {err}")
+        times[f"ell_gram.{mode}"] = dict(
+            ms=device_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode), inner=10),
+            plain_ms=eager_ms(lambda k: ell_gram_and_v_blocked(bi, bv, x_in, n=tp.n, bk=PAPER_PLAIN_BK, precision=mode),
+                              inner=1, warmup=1, reps=5),
+            library_ms=eager_ms(lambda k: library(), inner=1, warmup=1, reps=5),
+            bound={"bytes": gram_bound.memory_s * 1e3, "operations": gram_bound.compute_s * 1e3}, max_abs_err=err)
+    g, v = ell_gram_and_v(bi, bv, x_in, n=tp.n)
+    u_err = errors(sstep_inner(g, v, S, B, ETA), sstep_inner_ref(g, v, S, B, ETA), U_TOL)
+    check(u_err[2], f"sstep_inner on a {name} bundle: max abs error {u_err[0]}")
+    tri = B * B * S * (S - 1) // 2
+    times["sstep_inner.fp32"] = dict(
+        ms=device_ms(lambda k: sstep_inner(g, v, S, B, ETA), inner=20),
+        plain_ms=eager_ms(lambda k: sstep_inner_ref(g, v, S, B, ETA), inner=1, warmup=1, reps=5), library_ms=None,
+        bound={"bytes": (tri * 4 + 2 * S * B * 4) / HBM_BYTES_PER_S * 1e3,
+               "operations": (2.0 * tri + 8.0 * S * B) / FP32_FLOP_PER_S * 1e3}, max_abs_err=u_err[0])
+    for key, row in times.items():
+        by = max(row["bound"], key=row["bound"].get)
+        row.update(bound_ms=row["bound"][by], bound_by=by)
+        library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        log(f"[paper] {name} bundle (sb, w, n) = {(S * B, int(bi.shape[1]), tp.n)}: {key:16s} {row['ms']:.5f} ms on the "
+            f"device, plain {row['plain_ms']:.4f} ms, library {library}, bound {row['bound_ms']:.6f} ms by {by}; "
+            f"max abs err {row['max_abs_err']:.3g}")
+    out["kernels"] = times
+    out["bundle"] = {"sb": S * B, "w": int(bi.shape[1]), "n": tp.n}
+    return out
+
+
+def _paper_corners(name: str, tp, tp1) -> dict:
+    """(b) FedAvg (p_r = P_R, s = 1) on ``tp``; s-step (p_r = 1, s =
+    PAPER_SSTEP_S) and mini-batch SGD (p_r = 1, s = 1) on ``tp1``: each
+    PAPER_CORNER_ROUNDS rounds in fp32 against the all-plain run, the same
+    run with η off by 0.1 % as the control (at s = 1 there is no G to skew,
+    and the bf16 wire rounds only the margins: over mini-batch SGD's 4 steps
+    on news20-sm it moved x by less than the limit)."""
+    from repro_torch.core.engine import ParallelSGDSchedule, run_engine_chunk
+
+    r = PAPER_CORNER_ROUNDS
+    corners = {
+        "fedavg": (tp, ParallelSGDSchedule.fedavg(P_R, B, ETA, TAU, r)),
+        "sstep": (tp1, ParallelSGDSchedule.sstep(PAPER_SSTEP_S, B, ETA, PAPER_SSTEP_S * r)),
+        "mb_sgd": (tp1, ParallelSGDSchedule.mb_sgd(B, ETA, r)),
+    }
+    out = {}
+    for corner, (problem, sched) in corners.items():
+        x0 = torch.zeros(problem.n, dtype=torch.float32, device=problem.values.device)
+        zero_launch_counts()
+        x = run_engine_chunk(problem, x0, 0, sched.rounds, sched)
+        sync()
+        got = launch_counts()
+        bundles = sched.rounds * sched.p_r * (sched.tau // sched.s)
+        want = bundles if sched.s > 1 else 0  # s = 1: one SpMV and one SpMVᵀ a step, no Gram
+        check(got == {"ell_gram.fp32": want, "ell_gram.bf16": 0, "sstep_inner.fp32": want, "sstep_inner.bf16": 0},
+              f"{name} {corner}: launches {got}, expected {want} of each fp32 kernel")
+        with plain_corrections():
+            x_plain = run_engine_chunk(problem, x0, 0, sched.rounds, dataclasses.replace(sched, gram="blocked", bk=PAPER_PLAIN_BK))
+        x_eta = run_engine_chunk(problem, x0, 0, sched.rounds, dataclasses.replace(sched, eta=sched.eta * 1.001))
+        out[corner] = _plain_gap(f"{name} {corner} (p_r = {sched.p_r}, s = {sched.s}, b = {sched.b}, τ = {sched.tau}, "
+                                 f"{sched.rounds} rounds)", x, x_plain, {"η off by 0.1 %": x_eta})
+        out[corner]["launches"] = got
+    return out
+
+
+def _paper_front_door(dataset: str, device=None) -> dict:
+    """(c) ``ExperimentSpec`` → ``Session.step_rounds`` under each of
+    PAPER_OBJECTIVES: the corrections go to ``inner_corrections_loop`` (no
+    ``sstep_inner`` launch, one loop call a bundle on an eager or captured
+    round, none on a replayed one), x against an all-plain Session, (G, v)
+    off by 1 % on the same problem as the control, the bf16 wire read beside."""
+    from repro_torch.api import ExperimentSpec, MeshSpec, Session
+    from repro_torch.core import engine, round_graph
+    from repro_torch.core.engine import ParallelSGDSchedule, run_engine_chunk
+
+    loop = engine.inner_corrections_loop
+    calls = [0]
+
+    def counted_loop(*args, **kwargs):
+        calls[0] += 1
+        return loop(*args, **kwargs)
+
+    def spec_(objective, l2, **sched_kw):
+        return ExperimentSpec(
+            dataset=dataset, seed=0, row_multiple=S * B, name=f"{dataset}-{objective}", objective=objective, l2=l2,
+            schedule=ParallelSGDSchedule.hybrid(p_r=P_R, s=S, b=B, eta=ETA, tau=TAU, rounds=PAPER_ROUNDS,
+                                                loss_every=PAPER_ROUNDS // 2, **sched_kw),
+            mesh=MeshSpec(p_r=P_R, p_c=1))
+
+    bundles = P_R * (TAU // S)
+    out = {}
+    for objective, l2 in PAPER_OBJECTIVES:
+        spec = spec_(objective, l2)
+        sess = Session(spec, device=device)
+        tp = sess.bundle.team
+        cycle = round_graph.round_cycle(tp.rows_local, S * B, TAU // S)
+        graphed = cycle <= round_graph.CYCLE_CAP
+        zero_launch_counts()
+        before = dict(round_graph.counts)
+        calls[0] = 0
+        engine.inner_corrections_loop = counted_loop
+        try:
+            t0 = time.perf_counter()
+            while not sess.done:
+                sess.step_rounds(PAPER_ROUNDS // 2)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            engine.inner_corrections_loop = loop
+        got = launch_counts()
+        made = {k: round_graph.counts[k] - before[k] for k in before}
+        replayed = made["replays"]
+        want_graphs = _graphs_expected(cycle, PAPER_ROUNDS)
+        check(got == {"ell_gram.fp32": PAPER_ROUNDS * bundles, "ell_gram.bf16": 0, "sstep_inner.fp32": 0,
+                      "sstep_inner.bf16": 0},
+              f"{dataset} {objective}: launches {got}: the corrections did not take the loop")
+        check(made == want_graphs, f"{dataset} {objective}: round graphs {made}, expected {want_graphs}")
+        # a bundle calls the loop once in an eager round and once while its
+        # round is captured; a replay runs no Python
+        want_calls = (PAPER_ROUNDS - replayed + made["captures"]) * bundles
+        check(calls[0] == want_calls, f"{dataset} {objective}: {calls[0]} calls of inner_corrections_loop, expected {want_calls}")
+        if dataset == "news20":
+            check(graphed and made["captures"] > 0 and replayed > 0, f"news20 {objective}: the loop was not captured and replayed")
+        x = torch.from_numpy(sess.current_x()).to(tp.values.device)
+        losses = list(sess.losses)
+        check(all(math.isfinite(v) for v in losses), f"{dataset} {objective}: losses {losses}")
+        with plain_corrections():
+            plain = Session(spec_(objective, l2, gram="blocked", bk=PAPER_PLAIN_BK), device=device)
+            while not plain.done:
+                plain.step_rounds(PAPER_ROUNDS // 2)
+        x_plain = torch.from_numpy(plain.current_x()).to(tp.values.device)
+        x0 = torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device)
+        with gram_v_off_by_one_percent():
+            x_skew = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sess.spec.schedule)
+        x_bf16 = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, dataclasses.replace(sess.spec.schedule, precision="bf16"))
+        row = _plain_gap(f"{dataset} {objective} λ = {l2:g} (Session.step_rounds)", x, x_plain, {"(G, v) off by 1 %": x_skew})
+        row.update(other_wire_gap=float((x_bf16 - x_plain).abs().max()), launches=got, graphs=made,
+                   loop_calls=calls[0], losses=losses, wall_s=wall, cycle=cycle)
+        log(f"[paper] {dataset} {objective} λ = {l2:g}: the bf16 wire's run is {row['other_wire_gap']:.3g} from the "
+            f"plain run's; losses {' '.join(f'{v:.6f}' for v in losses)}; "
+            f"{calls[0]} calls of inner_corrections_loop, launches {got}, round graphs {made} "
+            f"({'graphed' if graphed else 'eager'}, cycle {cycle}); {wall:.2f} s for {PAPER_ROUNDS} rounds")
+        out[f"{objective}_l2_{l2:g}"] = row
+        del sess, plain
+    return out
+
+
+def paper_phase(smi: str, url_rows: int | None = PAPER_URL_ROWS, sweep: dict | None = None, device=None) -> dict:
+    """The paper's other datasets end to end (``--paper`` alone, with full
+    url): for each of PAPER_DATASETS, built by ``make_dataset`` at its
+    registered statistics (url's rows cut to ``url_rows`` unless None), (a)
+    the main path at D = 0 fp32 and D = 2 bf16, (b) the corners, (c) on
+    PAPER_FRONT_DOOR the other objectives through the front door; each
+    dataset's host arrays are let go before the next is built. (d) the
+    sweep CLI on url's spec: ``sweep`` is its process if the caller started
+    it (``start_sweep_cli``), else it starts after (c) and is waited for.
+    Returns the numbers for the phase's JSON line."""
+    from repro_torch.api.run import _cached_dataset
+    from repro_torch.core.teams import stack_row_teams
+    from repro_torch.sparse.synthetic import DATASET_STATS
+
+    started = time.perf_counter()
+    out = {"card": smi, "point": {"p_r": P_R, "s": S, "b": B, "tau": TAU, "eta": ETA, "rounds": PAPER_ROUNDS},
+           "plain_bk": PAPER_PLAIN_BK, "datasets": {}}
+    names = {"url": paper_url_name(url_rows)}
+    if url_rows is not None:
+        log(f"[paper] url runs with its rows cut to {url_rows} (of {DATASET_STATS['url'].m:,}): make_skewed_csr with url's "
+            f"columns, mean width and skew, registered as {names['url']!r}; full url under --paper")
+    out["url_rows"] = url_rows
+    for base in PAPER_DATASETS:
+        name = names.get(base, base)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ds = _cached_dataset(name, seed=0)  # the front door's sessions find it in the cache (build_problem's call)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp = stack_row_teams(ds.A, ds.y, P_R, row_multiple=S * B, device=device)
+        sync()
+        stack_s = time.perf_counter() - t0
+        row = {"m": ds.A.m, "n": ds.A.n, "nnz": ds.A.nnz, "generate_s": gen_s, "stack_s": stack_s,
+               "teams": list(tp.indices.shape), "host_peak_gb": _host_peak_gb()}
+        log(f"[paper] {name}: m = {ds.A.m:,}, n = {ds.A.n:,}, nnz = {ds.A.nnz:,}; generated in {gen_s:.1f} s, "
+            f"stacked into {P_R} teams {tuple(tp.indices.shape)} on the card in {stack_s:.1f} s; host peak "
+            f"{row['host_peak_gb']:.1f} GB so far")
+        row["engine"] = _paper_engine(name, tp, smi)
+        t0 = time.perf_counter()
+        tp1 = stack_row_teams(ds.A, ds.y, 1, row_multiple=PAPER_SSTEP_S * B, device=device)
+        row["stack1_s"] = time.perf_counter() - t0
+        row["corners"] = _paper_corners(name, tp, tp1)
+        del tp, tp1
+        if base in PAPER_FRONT_DOOR:
+            row["front_door"] = _paper_front_door(name, device=device)
+        row["device_peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["host_peak_gb"] = _host_peak_gb()
+        log(f"[paper] {name}: device peak {row['device_peak_bytes']:,} B (max_memory_allocated); host peak "
+            f"{row['host_peak_gb']:.1f} GB so far")
+        out["datasets"][name] = row
+        del ds
+        _cached_dataset.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if sweep is None:
+        sweep = start_sweep_cli(device)
+    out["sweep_cli"] = finish_sweep_cli(sweep)
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[paper] phase done in {out['phase_s']:.1f} s")
+    return out
+
+
 def device_line() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3300,6 +3793,24 @@ def mesh_nccl_main(smi: str) -> None:
     device_line()
 
 
+def paper_launches(paper: dict, key: str) -> dict:
+    """{dataset.path: launches of ``key``} over the paper phase's runs."""
+    return {f"{name}.{label}": run["launches"][key] for name, row in paper["datasets"].items()
+            for runs in (row["engine"]["runs"], row["corners"], row.get("front_door", {})) for label, run in runs.items()}
+
+
+def paper_main(smi: str) -> None:
+    """``--paper``: the paper phase alone, after building the kernels, with
+    full url and the sweep CLI after (a)–(c)."""
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    paper = paper_phase(smi, url_rows=None)
+    print(smi, flush=True)
+    print(json.dumps({"paper": paper}), flush=True)
+    device_line()
+
+
 def graph_main(smi: str) -> None:
     """``--graph``: the graph phase alone on the main path's team problem,
     after building the kernels."""
@@ -3316,6 +3827,7 @@ def graph_main(smi: str) -> None:
 
 
 def main() -> None:
+    started = time.perf_counter()
     # ---- phase 1: device ------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED — torch.cuda.is_available() is False; this run needs a GPU")
@@ -3338,6 +3850,9 @@ def main() -> None:
         return
     if "--graph" in sys.argv[1:]:
         graph_main(smi)
+        return
+    if "--paper" in sys.argv[1:]:
+        paper_main(smi)
         return
     alone = {"--model-mesh": MM_PARTS, "--decode-mesh": ("decode",), "--dryrun": ("decode", "dryrun")}
     for flag, parts in alone.items():
@@ -3384,6 +3899,10 @@ def main() -> None:
     # with what the solver's phases keep); then the rest of the zoo
     lm = lm_phase(smi)
     zoo = zoo_phase(smi)
+    # the paper phase's sweep CLI generates full url in a process of its own
+    # beside the model mesh's host-bound ranks; the paper phase collects it
+    sweep_cli = start_sweep_cli()
+    atexit.register(stop_sweep_cli, sweep_cli)
     model_mesh = model_mesh_phase(smi)
 
     t0 = time.perf_counter()
@@ -3826,6 +4345,10 @@ def main() -> None:
     # ---- the 2D mesh: 1 × 1 over NCCL, 2 × 2 of four processes on the card --
     mesh = mesh_phase(smi)
     print(json.dumps({"mesh": mesh}), flush=True)
+
+    # ---- the paper's other datasets: news20, epsilon, url (rows cut) -------
+    paper = paper_phase(smi, sweep=sweep_cli)
+    print(json.dumps({"paper": paper}), flush=True)
     log(f"[mem  ] device memory held after the solver's phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     print(json.dumps({"lm": lm}), flush=True)
@@ -3865,6 +4388,12 @@ def main() -> None:
         if name == "ell_gram":  # the autotuner's (tile, ks) for rcv1's profile beside the default's
             prof = tuned["profiles"][f"rcv1_{mode}"]
             kernels[-1]["tuned"] = {k: prof[k] for k in ("tile", "ks", "ms", "default", "default_ms", "bound_ms")}
+        # the paper phase: launches on each dataset's paths, and the kernel on
+        # one real bundle of each dataset
+        kernels[-1]["launches_paper"] = paper_launches(paper, key)
+        kernels[-1]["paper"] = {name: {k: row["engine"]["kernels"][key][k] for k in TIMED_KEYS if k in row["engine"]["kernels"][key]}
+                                | row["engine"]["bundle"] for name, row in paper["datasets"].items()
+                                if key in row["engine"]["kernels"]}
         if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
             kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
     print(smi, flush=True)
@@ -3874,6 +4403,7 @@ def main() -> None:
                       "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
                       "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
                       "ledger_delay2_bf16": led16.to_dict(), "ab": ab, "sweep": sweep}), flush=True)
+    log(f"[done ] the run took {time.perf_counter() - started:.1f} s")
     device_line()
 
 

@@ -17,7 +17,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.objective import LOGISTIC, Objective, get_objective
 from repro_torch.core.problem import Problem
-from repro_torch.sparse.csr import CSRMatrix
+from repro_torch.sparse.csr import CSRMatrix, row_chunks
 from repro_torch.sparse.ell import EllBlock
 from repro_torch.sparse.partition import partition_rows
 
@@ -50,22 +50,20 @@ def stack_row_teams(
 ) -> TeamProblem:
     device = resolve_device(device)
     obj = get_objective(objective)
-    ya = a.scale_rows(np.asarray(y, dtype=np.float64))
+    y = np.asarray(y, dtype=np.float64)
     rb = partition_rows(a.m, p)
-    blocks = [ya.row_block(int(rb[i]), int(rb[i + 1])) for i in range(p)]
+    blocks = [a.row_block(int(rb[i]), int(rb[i + 1])) for i in range(p)]
     width = max(max((int(blk.nnz_per_row.max()) if blk.m and blk.nnz else 1) for blk in blocks), 1)
     rows_local = max(int(rb[i + 1] - rb[i]) for i in range(p))
     rows_local = -(-rows_local // row_multiple) * row_multiple
 
     idx = np.zeros((p, rows_local, width), dtype=np.int32)
-    val = np.zeros((p, rows_local, width), dtype=np.float64)
+    # the values straight in float32; another dtype is cast from float64 at
+    # the end, one rounding as before
+    val = np.zeros((p, rows_local, width), dtype=np.float32 if dtype == torch.float32 else np.float64)
     valid = np.zeros((p, rows_local), dtype=bool)
     for i, blk in enumerate(blocks):
-        for r in range(blk.m):
-            lo, hi = int(blk.indptr[r]), int(blk.indptr[r + 1])
-            k = hi - lo
-            idx[i, r, :k] = blk.indices[lo:hi]
-            val[i, r, :k] = blk.data[lo:hi]
+        _pad_rows(idx[i], val[i], blk, y[rb[i] : rb[i + 1]])
         valid[i, : blk.m] = True
     return TeamProblem(
         indices=torch.from_numpy(idx).to(device),
@@ -76,6 +74,31 @@ def stack_row_teams(
         n=a.n,
         objective=obj,
     )
+
+
+# nonzeros ``_pad_rows`` places at once: its int64 temporaries stay near
+# 0.5 GB whatever the block's size
+PAD_CHUNK = 1 << 24
+
+
+def _pad_rows(idx: np.ndarray, val: np.ndarray, blk: CSRMatrix, y: np.ndarray) -> None:
+    """Row r of ``blk`` into ``idx[r, :k]`` and ``diag(y)·blk``'s row into
+    ``val[r, :k]`` (k its length; the rest stays zero). Each value is the
+    float64 product ``data·y`` cast once to ``val``'s dtype, as a float64
+    array cast afterwards would give. Rows go in chunks of about
+    ``PAD_CHUNK`` nonzeros; a chunk of full-width rows is a reshape."""
+    width = idx.shape[1]
+    for r0, r1 in row_chunks(blk.indptr, PAD_CHUNK):
+        lo, hi = int(blk.indptr[r0]), int(blk.indptr[r1])
+        counts = np.diff(blk.indptr[r0 : r1 + 1])
+        if hi - lo == (r1 - r0) * width:  # every row full: rows of the ELL block as they are
+            idx[r0:r1] = blk.indices[lo:hi].reshape(r1 - r0, width)
+            val[r0:r1] = blk.data[lo:hi].reshape(r1 - r0, width) * y[r0:r1, None]
+        else:
+            rows = np.repeat(np.arange(r0, r1, dtype=np.int64), counts)
+            slots = np.arange(lo, hi, dtype=np.int64) - np.repeat(blk.indptr[r0:r1], counts)
+            idx[rows, slots] = blk.indices[lo:hi]
+            val[rows, slots] = blk.data[lo:hi] * y[rows]
 
 
 def team_problem_from_numpy(

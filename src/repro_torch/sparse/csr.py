@@ -135,3 +135,15 @@ def csr_rmatvec(a: CSRMatrix, u: np.ndarray) -> np.ndarray:
     row_ids = np.repeat(np.arange(a.m), a.nnz_per_row)
     contrib = a.data * u[row_ids]
     return np.bincount(a.indices, weights=contrib, minlength=a.n).astype(u.dtype, copy=False)
+
+
+def row_chunks(indptr: np.ndarray, max_nnz: int):
+    """(r0, r1) row ranges that cover the rows in order, each holding at
+    most ``max_nnz`` nonzeros (or one row, where a row alone holds more):
+    how the host build bounds its temporaries on datasets of any size."""
+    m = len(indptr) - 1
+    r0 = 0
+    while r0 < m:
+        r1 = max(int(np.searchsorted(indptr, indptr[r0] + max_nnz, side="right")) - 1, r0 + 1)
+        yield r0, r1
+        r0 = r1

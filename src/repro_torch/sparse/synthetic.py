@@ -18,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.sparse.csr import CSRMatrix, csr_matvec
+from repro_torch.sparse.csr import CSRMatrix, csr_matvec, row_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,20 +102,39 @@ def make_skewed_csr(
     vals = rng.standard_normal(total) / np.sqrt(zbar)
     indptr = np.zeros(m + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
-    # dedupe within rows
-    out_idx, out_val, out_ptr = [], [], [0]
-    for i in range(m):
-        lo, hi = indptr[i], indptr[i + 1]
-        c, first = np.unique(cols[lo:hi], return_index=True)
-        out_idx.append(c)
-        out_val.append(vals[lo:hi][first])
-        out_ptr.append(out_ptr[-1] + len(c))
-    return CSRMatrix(
-        indptr=np.asarray(out_ptr, np.int64),
-        indices=np.concatenate(out_idx),
-        data=np.concatenate(out_val),
-        shape=(m, n),
-    )
+    idx, val, kept = _dedupe_rows(cols, vals, indptr, n)
+    out_ptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(kept, out=out_ptr[1:])
+    return CSRMatrix(indptr=out_ptr, indices=idx, data=val, shape=(m, n))
+
+
+# entries a pass of ``_dedupe_rows`` sorts at once: its int64 temporaries
+# stay near 0.5 GB whatever the dataset's size
+DEDUPE_CHUNK = 1 << 24
+
+
+def _dedupe_rows(cols: np.ndarray, vals: np.ndarray, indptr: np.ndarray, n: int):
+    """Each row's distinct column ids in ascending order, each with the
+    value of its first occurrence, and the kept count of every row: what
+    ``np.unique(row_cols, return_index=True)`` keeps, for all rows at
+    once. A stable sort by (row, column) puts a repeated id's first
+    occurrence first in its run; the runs' heads are kept. Rows go in
+    chunks of about ``DEDUPE_CHUNK`` entries."""
+    idx_parts, val_parts, kept = [], [], np.zeros(len(indptr) - 1, dtype=np.int64)
+    for r0, r1 in row_chunks(indptr, DEDUPE_CHUNK):
+        lo, hi = int(indptr[r0]), int(indptr[r1])
+        rows = np.repeat(np.arange(r1 - r0, dtype=np.int64), np.diff(indptr[r0 : r1 + 1]))
+        key = rows * n + cols[lo:hi]
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        head = np.empty(hi - lo, dtype=bool)
+        head[:1] = True
+        np.not_equal(key[1:], key[:-1], out=head[1:])
+        take = order[head]
+        idx_parts.append(cols[lo:hi][take])
+        val_parts.append(vals[lo:hi][take])
+        kept[r0:r1] = np.bincount(rows[take], minlength=r1 - r0)
+    return np.concatenate(idx_parts), np.concatenate(val_parts), kept
 
 
 def make_dataset(name: str, seed: int = 0) -> SyntheticDataset:
