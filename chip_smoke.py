@@ -33,7 +33,12 @@ then the 2D-mesh backend (``backend="shard_map"``) through ``run(spec)`` and
 a 2 × 2 mesh of four spawned processes sharing the card in a gloo group
 with CUDA tensors (fp32 at D = 0, bf16 at D = 1), each held against the
 simulated engine, with each rank's launch counts and comm ledger checked
-against the closed form — and, right after the build and before every
+against the closed form; then the paper's grid (``paper_mesh_phase``): full
+news20 at (1, 4), (2, 2) and (4, 1) in four spawned processes sharing the
+card over gloo, each building its own block alone, fp32 at D = 0 (and bf16
+at D = 1 on (2, 2)), each held
+against the simulated engine at the same p_r with controls that must miss
+(one ``{"paper_mesh": ...}`` JSON line) — and, right after the build and before every
 solver phase (on an empty card), the language-model trainer
 (``repro_torch.train.loop.train``) on qwen2.5-3b at its published width,
 depth cut to 2 layers: the loss at weights carried to the card against
@@ -93,7 +98,7 @@ geometry for url's rows (one ``{"paper": ...}`` JSON line); and prints
 
   * the GPU's name and power limit,
   * one JSON line each ``{"graph": ...}``, ``{"tune": ...}``, ``{"front_door": ...}``,
-    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"paper": ...}``, ``{"lm": ...}``,
+    ``{"serve": ...}``, ``{"mesh": ...}``, ``{"paper_mesh": ...}``, ``{"paper": ...}``, ``{"lm": ...}``,
     ``{"zoo": ...}`` and ``{"model_mesh": ...}``,
   * one JSON line ``{"kernels": [...]}`` with every kernel's launches on
     the main path, error against its plain version, time, plain time,
@@ -109,9 +114,12 @@ times it in turns with this one at each timed shape and mode: an
 ``sstep_inner.cu`` whose entry point is ``sstep_inner_launch(G, v, u, s, b,
 eta_over_b, bf16, stream)`` — told apart by the entry point the source
 defines. ``--sweep`` also times the corrections kernel at other consumer
-block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase and the
-model_mesh phase alone, their four ranks over NCCL with one rank a card, on a
-machine with four cards: the same oracles and limits as on gloo, DTensor's
+block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase, the
+paper's grid (full news20, epsilon and url; bf16 at D = 1 on (2, 2); url's
+three partitioners at (1, 4) and a timed run a shape; rank (0, 0)'s first
+column-shard bundle timed) and the model_mesh phase alone, their four ranks
+over NCCL with one rank a card, on a machine with four cards: the same oracles
+and limits as on gloo, DTensor's
 functional all-gather held bitwise against c10d's on each mesh dim, and (a)'s
 tokens/s at τ = 1 and τ = 2 in turns; its walls, a pod sync's and an
 ``all_to_all``'s ms are measurements of the cards' communication.
@@ -3768,16 +3776,408 @@ def paper_phase(smi: str, url_rows: int | None = PAPER_URL_ROWS, sweep: dict | N
     return out
 
 
+# the paper's grid: the three factorizations of p = 4 — (1, 4) the s-step
+# corner, (2, 2), (4, 1) the FedAvg corner — on the paper's datasets in one
+# spawned group of four ranks, each rank building its own block alone, at
+# the cells' point (S, B, TAU, ETA, ROUNDS rounds, a loss every 4): fp32 at
+# D = 0 on every shape, bf16 at D = 1 on (2, 2); on url also (1, 4) under
+# the other partitioners and a timed run (comm_timing) a shape
+PAPER_MESH_SHAPES = ((1, 4), (2, 2), (4, 1))
+PAPER_MESH_PARTITIONERS = ("cyclic", "rows", "nnz")
+# the ranks' group timeout: four concurrent generations of url (83 s alone
+# on the card's host) come before a collective
+PAPER_MESH_TIMEOUT_S = 900
+# max |Δx| over max |x| of a bf16 run at D = 1 on (2, 2) to the simulated
+# one: the mesh rounds each shard's partial (G, v) to bf16, the simulated
+# engine the total (MESH_BF16_DX's reason, relative here: the datasets' x
+# differ in scale), about bf16's own effect, which PR 27 read at 3.7e-6,
+# 2.0e-6 and 5.0e-6 of max |x| on news20, epsilon and url. On news20 over gloo
+# on one NVIDIA H100 80GB HBM3 (700 W) this gap read 3.7e-6, and the controls
+# on the simulated engine (the D = 0 run; (G, v) 1 % off) 4.3e-4 / 1.6e-4 on
+# epsilon and 1.4e-3 / 5.0e-4 on url, all at D = 1, p_r = 2
+PAPER_MESH_BF16_RTOL = 2e-5
+
+
+def paper_mesh_runs(name: str) -> dict:
+    """label: (p_r, p_c, delay, precision, partitioner, timed) of the runs
+    on ``name`` (url and its cuts: also the partitioners and timed runs)."""
+    runs = {}
+    for p_r, p_c in PAPER_MESH_SHAPES:
+        runs[f"{p_r}x{p_c}_fp32_d0"] = (p_r, p_c, 0, "fp32", "cyclic", False)
+        if (p_r, p_c) == (MESH_P, MESH_P):
+            runs[f"{p_r}x{p_c}_bf16_d1"] = (p_r, p_c, 1, "bf16", "cyclic", False)
+    if name.startswith("url"):
+        for part in PAPER_MESH_PARTITIONERS[1:]:
+            runs[f"1x4_fp32_d0_{part}"] = (1, 4, 0, "fp32", part, False)
+        for p_r, p_c in PAPER_MESH_SHAPES:
+            runs[f"{p_r}x{p_c}_timed"] = (p_r, p_c, 0, "fp32", "cyclic", True)
+    return runs
+
+
+def paper_mesh_spec(name: str, p_r: int, p_c: int, delay: int = 0, precision: str = "fp32",
+                    partitioner: str = "cyclic", timed: bool = False):
+    """A run of the paper's grid through the front door: ``name`` on a
+    p_r × p_c ``shard_map`` mesh at the cells' point."""
+    from repro_torch.api import ExperimentSpec, MeshSpec
+    from repro_torch.core.engine import ParallelSGDSchedule
+
+    return ExperimentSpec(
+        dataset=name, seed=0, row_multiple=S * B, name=f"{name}-mesh-{p_r}x{p_c}", comm_timing=timed,
+        schedule=ParallelSGDSchedule.hybrid(p_r=p_r, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=4,
+                                            p_c=p_c, delay=delay, precision=precision),
+        mesh=MeshSpec(p_r=p_r, p_c=p_c, backend="shard_map", partitioner=partitioner),
+    )
+
+
+def _col_bundle_times(bi: torch.Tensor, bv: torch.Tensor, x_in: torch.Tensor, n_loc: int) -> dict:
+    """``ell_gram`` on a column-shard bundle (ids < n_loc) and a weight
+    shard, on the current card: device and eager ms, the plain walk's (bk
+    PAPER_PLAIN_BK) and the library's (densify + ``torch.matmul``) ms and
+    the bound, in both modes."""
+    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    from repro_torch.kernels.ref import densify_bundle_ref
+    from repro_torch.launch.roofline import probe_bound
+
+    gram_bound = probe_bound(bi, bv)
+    out = {"sb": S * B, "w": int(bi.shape[1]), "n_loc": n_loc}
+    for mode in ("fp32", "bf16"):
+        wire = torch.float32 if mode == "fp32" else torch.bfloat16
+
+        def library(k):
+            dense = densify_bundle_ref(bi, bv, n_loc).to(wire)
+            return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_in.to(wire)
+
+        g_k, v_k = ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode)
+        g_p, v_p = ell_gram_and_v_blocked(bi, bv, x_in, n=n_loc, bk=PAPER_PLAIN_BK, precision=mode)
+        err = max(errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0])
+        row = dict(ms=device_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode), inner=10),
+                   eager_ms=eager_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode), inner=10),
+                   plain_ms=eager_ms(lambda k: ell_gram_and_v_blocked(bi, bv, x_in, n=n_loc, bk=PAPER_PLAIN_BK,
+                                                                      precision=mode), inner=1, warmup=1, reps=5),
+                   library_ms=eager_ms(library, inner=1, warmup=1, reps=5),
+                   bound={"bytes": gram_bound.memory_s * 1e3, "operations": gram_bound.compute_s * 1e3},
+                   max_abs_err=err, within_tol=all(errors(a, b, GV_TOL)[2] for a, b in ((g_k, g_p), (v_k, v_p))))
+        by = max(row["bound"], key=row["bound"].get)
+        row.update(bound_ms=row["bound"][by], bound_by=by)
+        out[f"ell_gram.{mode}"] = row
+    return out
+
+
+def paper_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, datasets: tuple,
+                    device=None) -> None:
+    """One rank of the paper's grid (a spawned process): joins a ``backend``
+    group through a file store; for each dataset generates it
+    (``_cached_dataset``, the front door's cache) and runs each of
+    ``paper_mesh_runs`` through ``Session`` (the rank builds its own block
+    alone) on ``device`` (None: ``cuda:(rank % device_count)``), one round a
+    step; writes its launch counts, ledger, step walls, losses, x's digest,
+    block dimensions, build seconds, host and device peaks under ``out``
+    (rank 0 also x, the partition's κ at (1, 4), and over NCCL, a card to
+    itself, the Gram kernel's times on its first column-shard bundle, timed
+    once the group is gone: no communicator beside the CUDA graphs that time
+    it)."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.api import Session
+    from repro_torch.api.run import _cached_dataset
+    from repro_torch.sparse.partition import partition_stats
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=PAPER_MESH_TIMEOUT_S))
+    result, bundles = {}, {}
+    try:
+        for name in datasets:
+            t0 = time.perf_counter()
+            ds = _cached_dataset(name, seed=0)
+            row = {"generate_s": time.perf_counter() - t0, "host_peak_gb_generated": _host_peak_gb(), "runs": {}}
+            for label, (p_r, p_c, delay, precision, partitioner, timed) in paper_mesh_runs(name).items():
+                spec = paper_mesh_spec(name, p_r, p_c, delay, precision, partitioner, timed)
+                t0 = time.perf_counter()
+                sess = Session(spec, device=device)
+                build_s = time.perf_counter() - t0
+                if sess.device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(sess.device)
+                zero_launch_counts()
+                walls = stepped_run(sess)
+                launches = launch_counts()
+                x = sess.current_x()
+                prob = sess.bundle.prob2d
+                rec = {"launches": launches, "ledger": sess.ledger.to_dict(), "walls": walls,
+                       "losses": [float(v) for v in sess.losses], "x_sha256": hashlib.sha256(x.tobytes()).hexdigest(),
+                       "block": list(prob.block), "block_shape": list(prob.indices.shape),
+                       "rows_local": prob.rows_local, "width": prob.width, "n_loc": prob.n_loc,
+                       "build_s": build_s, "host_peak_gb": _host_peak_gb(), "device_peak": torch.cuda.max_memory_allocated(sess.device) if sess.device.type == "cuda" else None,
+                       "device": str(sess.device)}
+                if rank == 0:
+                    np.save(pathlib.Path(out) / f"{name}.{label}.npy", x)
+                    if p_r == 1 and not timed:
+                        st = partition_stats(ds.A, sess.bundle.cp)
+                        rec["partition"] = {"kind": st.kind, "kappa": st.kappa, "max_n_local": st.max_n_local,
+                                            "nnz_per_rank": st.nnz_per_rank.tolist()}
+                    if backend == "nccl" and p_c > 1 and label.endswith("fp32_d0"):
+                        drv = sess._driver  # the first bundle of round 0, and the final shard
+                        bundles[(name, label)] = (drv._idx[: S * B].clone(), drv._val[: S * B].clone(),
+                                                  drv._x_loc.clone(), prob.n_loc)
+                row["runs"][label] = rec
+                del sess, prob
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            row["host_peak_gb"] = _host_peak_gb()
+            result[name] = row
+            del ds
+            _cached_dataset.cache_clear()
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    for (name, label), args in bundles.items():
+        try:
+            times = _col_bundle_times(*args)
+        except Exception:  # kept as a failure of the report, beside every other reading
+            times = {"error": traceback.format_exc()[-2000:]}
+        result[name]["runs"][label]["bundle_times"] = times
+    (pathlib.Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def _paper_mesh_oracles(name: str, ds, device) -> dict:
+    """The simulated engine on ``ds`` at each shape's p_r (stacked once a
+    p_r, on ``device``), with the schedules of ``paper_mesh_runs``: fp32 at
+    D = 0, at p_r = MESH_P bf16 at D = 1 and at D = 0; each but the last
+    also with (G, v) 1 % off. Each: x and losses on the host, its ledger."""
+    from repro_torch.core.engine import ParallelSGDSchedule, engine_comm_ledger, run_parallel_sgd
+    from repro_torch.core.teams import stack_row_teams
+
+    sims = {"stack_s": {}}
+    for p_r, p_c in PAPER_MESH_SHAPES:
+        t0 = time.perf_counter()
+        tp = stack_row_teams(ds.A, ds.y, p_r, row_multiple=S * B, device=device)
+        sims["stack_s"][p_r] = time.perf_counter() - t0
+        x0 = torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device)
+        base = ParallelSGDSchedule.hybrid(p_r=p_r, s=S, b=B, eta=ETA, tau=TAU, rounds=ROUNDS, loss_every=4, p_c=p_c)
+        scheds = {"fp32_d0": base}
+        if (p_r, p_c) == (MESH_P, MESH_P):
+            scheds["bf16_d1"] = dataclasses.replace(base, delay=1, precision="bf16")
+            scheds["bf16_d0"] = dataclasses.replace(base, precision="bf16")
+        for label, sched in scheds.items():
+            x, losses = run_parallel_sgd(tp, x0, sched)
+            rec = {"x": x.cpu().numpy(), "losses": [float(v) for v in losses.cpu()],
+                   "ledger": engine_comm_ledger(sched, tp.n, tp=tp)}
+            if label != "bf16_d0":
+                with gram_v_off_by_one_percent():
+                    rec["x_skew"] = run_parallel_sgd(tp, x0, sched)[0].cpu().numpy()
+            sims[(p_r, label)] = rec
+        del tp, x0
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return sims
+
+
+def _paper_mesh_report(name: str, ranks: list, sims: dict, tmp: pathlib.Path, where: str, smi: str) -> dict:
+    """Hold each run of ``name`` on the grid: the ranks' x bitwise equal and
+    their losses equal; x within X_TOL·max |x| of the simulated engine at
+    the same p_r, with controls that must miss (the simulated engine at the
+    other p_r's, (G, v) 1 % off, for bf16 D = 1 the D = 0 run; bf16 at
+    PAPER_MESH_BF16_RTOL), the factor by which each misses printed; the
+    launches; each rank's ledger = the simulated one (under another
+    partitioner than cyclic, with its own n_loc as the weight average's
+    words), its bytes a round the closed form (0 on an axis of size
+    1: the ledger keeps the call at span 1 and counts no bytes for it); url's
+    partitioners within X_TOL·max |x| of each other. Returns the readings."""
+    from repro_torch.core.comm import CommLedger
+
+    expected = ROUNDS * (TAU // S)
+    out = {"generate_s": [r[name]["generate_s"] for r in ranks],
+           "host_peak_gb": [r[name]["host_peak_gb"] for r in ranks], "runs": {}}
+    xs = {}
+    for label, (p_r, p_c, delay, precision, partitioner, timed) in paper_mesh_runs(name).items():
+        recs = [r[name]["runs"][label] for r in ranks]
+        x = np.load(tmp / f"{name}.{label}.npy")
+        xs[label] = x
+        check(all(rec["x_sha256"] == recs[0]["x_sha256"] for rec in recs), f"{name} {label}: the ranks gathered different x")
+        check(all(rec["losses"] == recs[0]["losses"] for rec in recs), f"{name} {label}: the ranks' losses differ")
+        check(all(rec["block"] == [r // p_c, r % p_c] and rec["block_shape"] == [rec["rows_local"], rec["width"]]
+                  for r, rec in enumerate(recs)), f"{name} {label}: a rank holds another block than its own")
+        sim_label = "bf16_d1" if precision == "bf16" else "fp32_d0"
+        sim = sims[(p_r, sim_label)]
+        x_max = float(np.abs(sim["x"]).max())
+        limit = (X_TOL if precision == "fp32" else PAPER_MESH_BF16_RTOL) * x_max
+        gap = float(np.abs(x - sim["x"]).max())
+        controls = {"(G, v) off by 1 %": sim["x_skew"]}
+        if precision == "bf16":
+            controls["simulated D = 0"] = sims[(p_r, "bf16_d0")]["x"]
+        else:
+            controls.update({f"simulated p_r = {q}": sims[(q, "fp32_d0")]["x"] for q, _ in PAPER_MESH_SHAPES if q != p_r})
+        misses = {what: float(np.abs(x - xc).max()) for what, xc in controls.items()}
+        check(np.isfinite(x).all() and x_max > 0 and gap <= limit,
+              f"{name} {label}: max |Δx| {gap} to the simulated engine at p_r = {p_r}, limit {limit}")
+        for what, miss in misses.items():
+            check(miss > limit, f"{name} {label}: the control ({what}) is within the limit: {miss} ≤ {limit}")
+        # launches: one bundle of each kind a step; the timed run's phase
+        # probes launch the Gram kernel besides
+        word = 4 if precision == "fp32" else 2
+        want = {"ell_gram.fp32": expected * (precision == "fp32"), "ell_gram.bf16": expected * (precision == "bf16"),
+                "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
+        want_bytes = {"gram_bytes": float((S * B * S * B + S * B) * (TAU // S) * word) if p_c > 1 else 0.0,
+                      "sync_bytes": float(4 * recs[0]["n_loc"]) if p_r > 1 else 0.0}
+        # the simulated ledger prices the weight average at an even split of
+        # the columns, which the cyclic partition is; another partitioner's
+        # shards pad to their own n_loc
+        sim_rates = tuple(dataclasses.replace(rt, words_per_call=recs[0]["n_loc"])
+                          if rt.axis == "rows" and partitioner != "cyclic" else rt for rt in sim["ledger"].rates)
+        for r, rec in enumerate(recs):
+            got = rec["launches"]
+            ok = (got == want if not timed else
+                  all(got[k] >= v if v else got[k] == 0 for k, v in want.items()) and got["sstep_inner.fp32"] == expected)
+            check(ok, f"{name} {label}, rank {r}: launches {got}, expected {want}" + (" (+ the probes')" if timed else ""))
+            led = CommLedger.from_dict(rec["ledger"])
+            check(led.rates == sim_rates and led.rounds == ROUNDS,
+                  f"{name} {label}, rank {r}: ledger {led.rates} vs simulated {sim_rates}")
+            per_round = led.counted_bytes(1)
+            check(per_round["gram_bytes"] == want_bytes["gram_bytes"] and per_round["sync_bytes"] == want_bytes["sync_bytes"],
+                  f"{name} {label}, rank {r}: bytes a round {per_round}, closed form {want_bytes}")
+        step_ms = statistics.median(max(rec["walls"][k] for rec in recs) for k in range(1, ROUNDS)) * 1e3
+        row = {"shape": [p_r, p_c], "delay": delay, "precision": precision, "partitioner": partitioner,
+               "gap": gap, "x_max": x_max, "limit": limit, "controls": misses,
+               "control_factor": min(misses.values()) / limit, "launches_per_rank": recs[0]["launches"],
+               "bytes_per_round": want_bytes, "losses": recs[0]["losses"], "sim_losses": sim["losses"],
+               "step_ms": step_ms, "rows_local": recs[0]["rows_local"], "width": recs[0]["width"],
+               "n_loc": recs[0]["n_loc"], "build_s": [rec["build_s"] for rec in recs],
+               "host_peak_gb": [rec["host_peak_gb"] for rec in recs],
+               "device_peak": [rec["device_peak"] for rec in recs], "devices": [rec["device"] for rec in recs]}
+        for key in ("partition", "bundle_times"):
+            if key in recs[0]:
+                row[key] = recs[0][key]
+        log(f"[pmesh] {name} {label} ({where}): rows_local {row['rows_local']:,}, width {row['width']}, n_loc "
+            f"{row['n_loc']:,}; max |Δx| to the simulated engine at p_r = {p_r} {gap:.3g} (limit {limit:.3g}); controls "
+            + ", ".join(f"{k} {v:.3g} ({v / limit:.1f}× the limit)" for k, v in misses.items())
+            + f"; launches a rank {recs[0]['launches']}; bytes a round {want_bytes}; losses {recs[0]['losses']} "
+            f"(simulated {sim['losses']}); step wall {step_ms:.3f} ms (median, slowest rank); build s "
+            f"{[round(v, 2) for v in row['build_s']]}; host peak GB {[round(v, 2) for v in row['host_peak_gb']]}; "
+            f"device peak B {row['device_peak']}; {smi}")
+        if "partition" in row:
+            st = row["partition"]
+            log(f"[pmesh] {name} {label}: partitioner {st['kind']}: κ = {st['kappa']:.6f}, max n_local "
+                f"{st['max_n_local']:,}, nnz a shard {st['nnz_per_rank']}; step wall {step_ms:.3f} ms")
+        if timed:
+            leds = [CommLedger.from_dict(rec["ledger"]) for rec in recs]
+            for r, led in enumerate(leds):
+                check(len(led.round_seconds) == ROUNDS
+                      and set(led.phase_seconds) == {"bundle_compute", "allreduce_gv", "param_avg"},
+                      f"{name} {label}, rank {r}: {len(led.round_seconds)} round walls, phases {led.phase_seconds}")
+            row["timed"] = [{"round_s": led.round_seconds, "seconds_per_round": led.seconds_per_round,
+                             "phase_s": led.phase_seconds} for led in leds]
+            log(f"[pmesh] {name} {label} timed: rank 0 {leds[0].seconds_per_round * 1e3:.3f} ms a round (median), "
+                f"slowest rank {max(led.seconds_per_round for led in leds) * 1e3:.3f} ms; phase seconds a round (rank 0) "
+                f"{leds[0].phase_seconds}; {smi}")
+        if "bundle_times" in row:
+            bt = row["bundle_times"]
+            check("error" not in bt, f"{name} {label}: timing rank (0, 0)'s first bundle failed: {bt.get('error')}")
+            for mode in ("fp32", "bf16") if "error" not in bt else ():
+                t = bt[f"ell_gram.{mode}"]
+                check(t["within_tol"], f"{name} {label}: ell_gram {mode} on rank 0's first bundle, max abs error "
+                      f"{t['max_abs_err']}")
+                log(f"[pmesh] {name} {label} rank (0, 0)'s first bundle (sb, w, n_loc) = {(bt['sb'], bt['w'], bt['n_loc'])}: "
+                    f"ell_gram.{mode} {t['ms']:.5f} ms on the device ({t['eager_ms']:.4f} ms a call from Python), plain "
+                    f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms by "
+                    f"{t['bound_by']}; max abs err {t['max_abs_err']:.3g}")
+        out["runs"][label] = row
+    parts = {p: xs[f"1x4_fp32_d0_{p}" if p != "cyclic" else "1x4_fp32_d0"] for p in PAPER_MESH_PARTITIONERS
+             if f"1x4_fp32_d0_{p}" in xs or p == "cyclic"}
+    if len(parts) > 1:
+        limit = X_TOL * float(np.abs(parts["cyclic"]).max())
+        gaps = {f"{a}-{b}": float(np.abs(parts[a] - parts[b]).max()) for a in parts for b in parts if a < b}
+        log(f"[pmesh] {name} (1, 4): the partitioners' x pairwise max |Δx| {gaps} (limit {limit:.3g})")
+        check(all(g <= limit for g in gaps.values()), f"{name}: the partitioners disagree: {gaps}, limit {limit}")
+        out["partitioner_gaps"] = gaps
+    return out
+
+
+def paper_mesh_phase(smi: str, datasets: tuple = PAPER_DATASETS, ranks_backend: str = "nccl",
+                     device=None) -> dict:
+    """The paper's grid: four spawned ranks (``paper_mesh_rank``) in one
+    ``ranks_backend`` group — NCCL, a card a rank (``--mesh-nccl``), or gloo
+    with CUDA tensors sharing one card — run ``paper_mesh_runs`` of each of
+    ``datasets`` at full size, each rank building its own block alone. This
+    process generates the datasets while they run and, after they finish
+    (so it does not share card 0 with rank 0), runs the simulated oracles on
+    ``device`` (None: the card) and holds every run against them
+    (``_paper_mesh_report``). Failures are gathered and reported together at
+    the end. Returns the numbers for the phase's JSON line."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.sparse.synthetic import make_dataset
+
+    started = time.perf_counter()
+    world = MESH_P * MESH_P
+    meminfo = {k: int(v.split()[0]) * 1024 for k, v in (line.split(":", 1) for line in
+                                                        pathlib.Path("/proc/meminfo").read_text().splitlines())
+               if k in ("MemTotal", "MemAvailable")}
+    out = {"card": smi, "backend": ranks_backend, "point": {"s": S, "b": B, "tau": TAU, "eta": ETA, "rounds": ROUNDS},
+           "host_memory": meminfo, "datasets": {}}
+    log(f"[pmesh] host memory: {meminfo['MemTotal'] / 1e9:.1f} GB, {meminfo['MemAvailable'] / 1e9:.1f} GB available; "
+        f"{os.cpu_count()} cores")
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(paper_mesh_rank, args=(world, f"{tmp}/store", tmp, ranks_backend, tuple(datasets),
+                                                        device),
+                                 nprocs=world, start_method="spawn", join=False)
+        data, gen_s = {}, {}
+        try:
+            for name in datasets:  # host work only, beside the ranks
+                t0 = time.perf_counter()
+                data[name] = make_dataset(name, seed=0)
+                gen_s[name] = time.perf_counter() - t0
+            while not ctx.join():
+                pass
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out["spawned_s"] = time.perf_counter() - started
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)]
+        where = ("gloo, CUDA tensors, 4 processes on one card" if ranks_backend == "gloo"
+                 else f"{ranks_backend}, a card a rank")
+        log(f"[pmesh] {world} ranks ({where}) ran {', '.join(datasets)} in {out['spawned_s']:.1f} s; this process "
+            f"generated them meanwhile in {', '.join(f'{v:.1f}' for v in gen_s.values())} s")
+        for name in datasets:
+            t0 = time.perf_counter()
+            sims = None
+            with deferred_checks() as fails:
+                sims = _paper_mesh_oracles(name, data.pop(name), device)
+                row = _paper_mesh_report(name, ranks, sims, pathlib.Path(tmp), where, smi)
+                row["oracle_stack_s"] = sims["stack_s"]
+                row["oracle_s"] = time.perf_counter() - t0
+                out["datasets"][name] = row
+            failed += [f"{name}: {f}" for f in fails]
+            del sims
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - started
+    log(f"[pmesh] the phase took {out['phase_s']:.1f} s (ranks {out['spawned_s']:.1f} s)")
+    check(not failed, "the paper's grid: " + " | ".join(failed))
+    return out
+
+
 def device_line() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
 def mesh_nccl_main(smi: str) -> None:
-    """``--mesh-nccl``: the mesh phase and the model_mesh phase alone, their
-    four ranks over NCCL with one rank a card (needs four cards), after
-    building the kernels; (a) also times τ = 1 against τ = ``MM_TAU`` in
-    turns."""
+    """``--mesh-nccl``: the mesh phase, the paper's grid (full news20,
+    epsilon and url) and the model_mesh phase alone, their four ranks over
+    NCCL with one rank a card (needs four cards), after building the
+    kernels; (a) also times τ = 1 against τ = ``MM_TAU`` in turns."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.device_count() >= MESH_P * MESH_P,
@@ -3786,9 +4186,11 @@ def mesh_nccl_main(smi: str) -> None:
     cards = smi.splitlines()  # nvidia-smi prints a line a card: the phases' lines name them once
     label = f"{len(cards)} × {cards[0]}" if len(set(cards)) == 1 else "; ".join(cards)
     mesh = mesh_phase(label, ranks_backend="nccl")
+    paper_mesh = paper_mesh_phase(label, ranks_backend="nccl")
     model_mesh = model_mesh_phase(label, ranks_backend="nccl")
     print(smi, flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"paper_mesh": paper_mesh}), flush=True)
     print(json.dumps({"model_mesh": model_mesh}), flush=True)
     device_line()
 
@@ -4346,6 +4748,10 @@ def main() -> None:
     mesh = mesh_phase(smi)
     print(json.dumps({"mesh": mesh}), flush=True)
 
+    # ---- the paper's grid: full news20 at (1, 4), (2, 2), (4, 1), gloo ----
+    paper_mesh = paper_mesh_phase(smi, datasets=("news20",), ranks_backend="gloo")
+    print(json.dumps({"paper_mesh": paper_mesh}), flush=True)
+
     # ---- the paper's other datasets: news20, epsilon, url (rows cut) -------
     paper = paper_phase(smi, sweep=sweep_cli)
     print(json.dumps({"paper": paper}), flush=True)
@@ -4391,6 +4797,9 @@ def main() -> None:
         # the paper phase: launches on each dataset's paths, and the kernel on
         # one real bundle of each dataset
         kernels[-1]["launches_paper"] = paper_launches(paper, key)
+        kernels[-1]["launches_paper_mesh"] = {f"{name}.{label}": run["launches_per_rank"][key]
+                                              for name, row in paper_mesh["datasets"].items()
+                                              for label, run in row["runs"].items()}
         kernels[-1]["paper"] = {name: {k: row["engine"]["kernels"][key][k] for k in TIMED_KEYS if k in row["engine"]["kernels"][key]}
                                 | row["engine"]["bundle"] for name, row in paper["datasets"].items()
                                 if key in row["engine"]["kernels"]}

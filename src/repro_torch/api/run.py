@@ -51,10 +51,10 @@ class ProblemBundle:
     """Everything ``run`` needs, built once from the spec.
 
     Exactly one of (team, prob2d) is populated, per the backend: the
-    stacked row teams the engine runs (on the device), or the mesh's host
-    layout and column partition, of which each rank moves only its own
-    block to its device. Each executor computes the loss from what it
-    holds."""
+    stacked row teams the engine runs (on the device), or the mesh's
+    column partition and host layout — on a mesh rank its own block
+    alone, which it moves to its device. Each executor computes the loss
+    from what it holds."""
 
     spec: ExperimentSpec
     dataset: SyntheticDataset
@@ -81,12 +81,27 @@ def _cached_dataset(name: str, seed: int = 0) -> SyntheticDataset:
     return ds
 
 
+def _rank_block(p_r: int, p_c: int) -> tuple[int, int] | None:
+    """This process's mesh device (i, j) in an initialized default process
+    group of p_r·p_c ranks, else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() == p_r * p_c:
+        rank = dist.get_rank()
+        return rank // p_c, rank % p_c
+    return None
+
+
 def build_problem(spec: ExperimentSpec, device=None) -> ProblemBundle:
     """Materialize the dataset and partition it for the spec's backend,
     on ``device`` (the mesh's layout stays on the host). Row padding is ``spec.row_multiple`` (default s·b) on
     both paths so simulated and distributed sample sequences agree; the
     spec's objective (+ l2) rides on every problem object, so both
-    executors and the loss probes read the same convex loss."""
+    executors and the loss probes read the same convex loss.
+
+    On the mesh, in a default process group of p_r·p_c ranks, the layout
+    holds this rank's (i, j) ELL block alone; outside one (a host-side look:
+    there is no rank to build for) every block."""
     sched, mesh = spec.schedule, spec.mesh
     device = resolve_device(device)
     ds = _cached_dataset(spec.dataset, seed=spec.seed)
@@ -100,7 +115,7 @@ def build_problem(spec: ExperimentSpec, device=None) -> ProblemBundle:
     else:
         bundle.prob2d, bundle.cp = build_2d_problem(
             ds.A, ds.y, mesh.p_r, mesh.p_c, mesh.partitioner, row_multiple=rm,
-            objective=obj,
+            objective=obj, block=_rank_block(mesh.p_r, mesh.p_c),
         )
     return bundle
 

@@ -247,6 +247,12 @@ class Session:
                 bm=self.spec.schedule.bm if self.spec.schedule.bm is not None else bm,
             )
             self.spec = dataclasses.replace(self.spec, schedule=sched)
+        # on the mesh the rank's place first: a missing or mis-sized process
+        # group is refused before anything is built, and in one the rank
+        # builds its own block alone
+        mesh = None
+        if self.spec.mesh.backend != "simulated":
+            mesh = _make_device_mesh(self.spec.mesh.p_r, self.spec.mesh.p_c)
         self.bundle = build_problem(self.spec, device=self.device)
         if autotuned_panels:
             # the opt-in also owns the gram-path choice: a heavy-tailed ELL
@@ -279,7 +285,6 @@ class Session:
                                          timed=self.spec.comm_timing,
                                          geometry=self.gram_geometry)
         else:
-            mesh = _make_device_mesh(self.spec.mesh.p_r, self.spec.mesh.p_c)
             self._driver = HybridDriver(
                 mesh,
                 self.bundle.prob2d,

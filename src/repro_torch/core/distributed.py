@@ -64,7 +64,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.engine import _decay, _integer_pow
 from repro_torch.core.objective import LOGISTIC, Objective, get_objective
 from repro_torch.kernels.sstep_inner import eta_over_b
-from repro_torch.sparse.csr import CSRMatrix
+from repro_torch.sparse.csr import CSRMatrix, row_chunks
 from repro_torch.sparse.ell import EllBlock, ell_matvec, ell_rmatvec
 from repro_torch.sparse.partition import ColumnPartition, partition_columns, partition_rows
 
@@ -90,7 +90,10 @@ class Hybrid2DProblem:
 
     indices/values: (p_r, p_c, rows_local, width) CPU tensors — ELL
     blocks, column ids local to each column shard (int32; values in the
-    build dtype). Each rank moves its own (i, j) block to its device.
+    build dtype) — or, with ``block = (i, j)``, that one mesh device's
+    (rows_local, width) block: what a rank builds for itself. ``width``
+    is the widest row of any block either way. Each rank moves its own
+    (i, j) block to its device.
     col_sizes: (p_c,) true (unpadded) columns per shard; shards pad to
     n_loc = max(col_sizes).
     """
@@ -104,27 +107,81 @@ class Hybrid2DProblem:
     n: int
     n_loc: int
     objective: Objective = LOGISTIC
+    block: tuple[int, int] | None = None
 
     @property
     def rows_local(self) -> int:
-        return int(self.indices.shape[2])
+        return int(self.indices.shape[-2])
 
     @property
     def width(self) -> int:
-        return int(self.indices.shape[3])
+        return int(self.indices.shape[-1])
+
+    def rank_block(self, i: int, j: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Mesh device (i, j)'s (rows_local, width) ELL indices and values;
+        raises for any other block of a one-block layout."""
+        if self.block is None:
+            return self.indices[i, j], self.values[i, j]
+        if tuple(self.block) != (i, j):
+            raise ValueError(f"this layout holds only block {tuple(self.block)}, not ({i}, {j})")
+        return self.indices, self.values
 
 
-def _ell_rows(blk: CSRMatrix, rows: int, width: int) -> tuple[np.ndarray, np.ndarray]:
-    """The CSR block as (rows, width) ELL arrays, pads (0, 0.0) after each
-    row's entries in their CSR order."""
-    idx = np.zeros((rows, width), dtype=np.int32)
-    val = np.zeros((rows, width), dtype=np.float64)
-    counts = blk.nnz_per_row
-    row_ids = np.repeat(np.arange(blk.m), counts)
-    slots = np.arange(blk.nnz) - np.repeat(blk.indptr[:-1], counts)
-    idx[row_ids, slots] = blk.indices
-    val[row_ids, slots] = blk.data
-    return idx, val
+# nonzeros the host build handles at once: its int64 temporaries stay near
+# 0.5 GB whatever the dataset's size
+BUILD_CHUNK = 1 << 24
+
+
+def _layout_width(a: CSRMatrix, cp: ColumnPartition) -> int:
+    """The widest row of any block of the layout — the most nonzeros one
+    row has in one column shard (1 for an empty matrix) — from per-row
+    counts a shard, one ``bincount`` over each chunk of nonzeros, without
+    laying any block out."""
+    if cp.p == 1:
+        return max(int(a.nnz_per_row.max()) if a.m and a.nnz else 1, 1)
+    owner = np.empty(a.n, dtype=np.int64)
+    for j in range(cp.p):
+        owner[cp.rank_cols(j)] = j
+    width = 1
+    for r0, r1 in row_chunks(a.indptr, BUILD_CHUNK):
+        lo, hi = int(a.indptr[r0]), int(a.indptr[r1])
+        if hi > lo:
+            key = np.repeat(np.arange(r1 - r0, dtype=np.int64) * cp.p, np.diff(a.indptr[r0 : r1 + 1]))
+            key += owner[a.indices[lo:hi]]
+            width = max(width, int(np.bincount(key).max()))
+    return width
+
+
+def _fill_block(idx: np.ndarray, val: np.ndarray, a: CSRMatrix, y: np.ndarray,
+                r0: int, r1: int, cols: np.ndarray) -> None:
+    """Block (rows [r0, r1), columns ``cols``) of diag(y)·A into the zeroed
+    (rows_local, width) ELL arrays: row r's entries in column shard order
+    renumbered 0..len(cols)-1 in the order given, in their CSR order, pads
+    (0, 0) after them — ``row_block(r0, r1).select_columns(cols)`` of
+    ``a.scale_rows(y)``, element for element. Each value is the float64
+    product ``data·y`` cast once to ``val``'s dtype. Rows go in chunks of
+    about ``BUILD_CHUNK`` nonzeros; a chunk whose rows are all full is a
+    reshape."""
+    width = idx.shape[1]
+    local = np.full(a.n, -1, dtype=np.int64)
+    local[cols] = np.arange(len(cols), dtype=np.int64)
+    blk = a.row_block(r0, r1)
+    for c0, c1 in row_chunks(blk.indptr, BUILD_CHUNK):
+        lo, hi = int(blk.indptr[c0]), int(blk.indptr[c1])
+        ids = local[blk.indices[lo:hi]]
+        keep = ids >= 0
+        rows = np.repeat(np.arange(c0, c1, dtype=np.int64), np.diff(blk.indptr[c0 : c1 + 1]))[keep]
+        ids, data = ids[keep], blk.data[lo:hi][keep]
+        if len(ids) == (c1 - c0) * width:  # every row full: rows of the ELL block as they are
+            idx[c0:c1] = ids.reshape(c1 - c0, width)
+            val[c0:c1] = data.reshape(c1 - c0, width) * y[r0 + c0 : r0 + c1, None]
+            continue
+        counts = np.bincount(rows - c0, minlength=c1 - c0)
+        first = np.zeros(c1 - c0, dtype=np.int64)
+        np.cumsum(counts[:-1], out=first[1:])
+        slots = np.arange(len(ids), dtype=np.int64) - np.repeat(first, counts)
+        idx[rows, slots] = ids
+        val[rows, slots] = data * y[r0 + rows]
 
 
 def build_2d_problem(
@@ -136,29 +193,43 @@ def build_2d_problem(
     row_multiple: int = 1,
     dtype: torch.dtype = torch.float32,
     objective: str | Objective = LOGISTIC,
+    block: tuple[int, int] | None = None,
 ) -> tuple[Hybrid2DProblem, ColumnPartition]:
     """Partition (A, y) onto the p_r × p_c mesh, on the host. Row bounds
     match ``repro_torch.core.teams.stack_row_teams`` so simulated and
     distributed sample sequences agree; ``objective`` is the shared convex
-    loss. Every rank builds the same layout (deterministic in its inputs)."""
+    loss. The layout is deterministic in its inputs.
+
+    ``block = (i, j)`` lays out mesh device (i, j)'s block alone (a rank
+    builds its own): bitwise the whole layout's ``[i, j]``, with the same
+    ``rows_local``, ``width``, ``n_loc``, ``col_sizes`` and partition.
+    None lays out every block."""
     obj = get_objective(objective)
-    ya = a.scale_rows(np.asarray(y, dtype=np.float64))
+    y = np.asarray(y, dtype=np.float64)
     cp = partition_columns(a, p_c, partitioner)
     rb = partition_rows(a.m, p_r)
     rows_local = max(int(rb[i + 1] - rb[i]) for i in range(p_r))
     rows_local = -(-rows_local // row_multiple) * row_multiple
     n_loc = int(cp.n_local.max())
-
-    blocks = [
-        [ya.row_block(int(rb[i]), int(rb[i + 1])).select_columns(cp.rank_cols(j)) for j in range(p_c)]
-        for i in range(p_r)
-    ]
-    width = max([1] + [int(blk.nnz_per_row.max()) for row in blocks for blk in row if blk.nnz])
-    idx = np.zeros((p_r, p_c, rows_local, width), dtype=np.int32)
-    val = np.zeros((p_r, p_c, rows_local, width), dtype=np.float64)
-    for i in range(p_r):
-        for j in range(p_c):
-            idx[i, j], val[i, j] = _ell_rows(blocks[i][j], rows_local, width)
+    width = _layout_width(a, cp)
+    # the values straight in float32; another dtype is cast from float64 at
+    # the end, one rounding either way
+    val_dtype = np.float32 if dtype == torch.float32 else np.float64
+    if block is None:
+        owned = [(i, j) for i in range(p_r) for j in range(p_c)]
+        idx = np.zeros((p_r, p_c, rows_local, width), dtype=np.int32)
+        val = np.zeros((p_r, p_c, rows_local, width), dtype=val_dtype)
+        views = {ij: (idx[ij], val[ij]) for ij in owned}
+    else:
+        block = (int(block[0]), int(block[1]))
+        if not (0 <= block[0] < p_r and 0 <= block[1] < p_c):
+            raise ValueError(f"block {block} is not on the {p_r}×{p_c} mesh")
+        owned = [block]
+        idx = np.zeros((rows_local, width), dtype=np.int32)
+        val = np.zeros((rows_local, width), dtype=val_dtype)
+        views = {block: (idx, val)}
+    for i, j in owned:
+        _fill_block(*views[(i, j)], a, y, int(rb[i]), int(rb[i + 1]), cp.rank_cols(j))
     prob = Hybrid2DProblem(
         indices=torch.from_numpy(idx),
         values=torch.from_numpy(val).to(dtype),
@@ -169,6 +240,7 @@ def build_2d_problem(
         n=a.n,
         n_loc=n_loc,
         objective=obj,
+        block=block,
     )
     return prob, cp
 
@@ -480,8 +552,9 @@ class HybridDriver:
         self.ledger.rounds = self.rounds_done
         self._step = make_hybrid_step(mesh, prob, sched, comm=comm, geometry=geometry)
         i, j = mesh.row, mesh.col
-        self._idx = prob.indices[i, j].to(self.device).contiguous()
-        self._val = prob.values[i, j].to(self.device).contiguous()
+        idx, val = prob.rank_block(i, j)
+        self._idx = idx.to(self.device).contiguous()
+        self._val = val.to(self.device).contiguous()
         # the real (unpadded) rows of this rank's row team: the loss masks
         # the pads (a zero row has margin 0 and a nonzero loss)
         rb = partition_rows(prob.m, prob.p_r)
