@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
-mode of each (fp32 and bf16) against its plain PyTorch version on the GPU,
+mode of each (fp32 and bf16) against its plain PyTorch version on the GPU
+(the Gram kernel's two routes each: the hash probe, and the dense-row route
+on epsilon's rows, its shards, 512 rows and a small ragged bundle, with the
+crossover between the two that ``gram_route``'s constants are set from),
 drives the port's paths (the simulated HybridSGD engine: synchronous fp32,
 then delay D = 2 in bf16 and in fp32) on the full-size synthetic ``rcv1``
 dataset through the entry points a user calls, checks that each path went
@@ -110,10 +113,10 @@ synchronous fp32 path and of the D = 2 bf16 path with ``torch.profiler`` and
 prints the device time by kernel. ``--ab OLD.cu`` (a path from the repo root;
 it may be given more than once) also builds an earlier kernel source and
 times it in turns with this one at each timed shape and mode: an
-``ell_gram.cu`` whose C entry point takes no launch geometry, or an
+``ell_gram.cu`` whose C entry point takes no launch geometry, an
 ``sstep_inner.cu`` whose entry point is ``sstep_inner_launch(G, v, u, s, b,
-eta_over_b, bf16, stream)`` — told apart by the entry point the source
-defines. ``--sweep`` also times the corrections kernel at other consumer
+eta_over_b, bf16, stream)``, or an ``ell_gram_dense.cu`` with this one's
+entry point — told apart by the entry point the source defines. ``--sweep`` also times the corrections kernel at other consumer
 block sizes at the timed shapes. ``--mesh-nccl`` runs the mesh phase, the
 paper's grid (full news20, epsilon and url; bf16 at D = 1 on (2, 2); url's
 three partitioners at (1, 4) and a timed run a shape; rank (0, 0)'s first
@@ -124,7 +127,10 @@ functional all-gather held bitwise against c10d's on each mesh dim, and (a)'s
 tokens/s at τ = 1 and τ = 2 in turns; its walls, a pod sync's and an
 ``all_to_all``'s ms are measurements of the cards' communication.
 ``--paper`` runs the paper phase alone, with full url and the sweep CLI after
-the in-process runs. ``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
+the in-process runs (epsilon's runs held on the dense route, the others' on
+the hash route, and one eager epsilon round traced). ``--gram`` runs the
+Gram routes' checks and times alone. ``--paper-grid [NAME,...]`` runs the
+paper's grid alone over NCCL on four cards, on the named datasets. ``--graph`` runs the graph phase alone, ``--zoo`` the zoo phase, ``--model-mesh``
 the model_mesh phase, ``--decode-mesh`` its part (c), ``--dryrun`` its parts (c)
 and (d). Every run prints the launch floor: the device time of a one-element PyTorch operation in a
 CUDA graph.
@@ -608,15 +614,64 @@ def ab_times(old_source: pathlib.Path, shapes: dict, gram_fn, build) -> dict:
     return result
 
 
+def ab_dense_times(old_source: pathlib.Path, device, build) -> dict:
+    """``--ab OLD.cu`` for the dense route: an earlier ``ell_gram_dense.cu``
+    with this one's C entry point, built beside it and timed in turns with
+    it — old, new, new, old — at the dense route's timed shapes in both
+    modes, after the two agree to the bit on distinct ids. Device ms of
+    each turn."""
+    import ctypes
+
+    from repro_torch.kernels.ell_gram import dense_geometry, ell_gram_dense
+
+    lib = build_old(old_source, "ell_gram_dense", build)
+    lib.ell_gram_dense_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.ell_gram_dense_launch.restype = ctypes.c_int
+
+    def old(idx, val, x, n, precision):
+        sb, w = val.shape
+        geo = dense_geometry(sb, n, precision)
+        g = torch.empty((sb, sb), dtype=torch.float32, device=val.device)
+        v = torch.empty((sb,), dtype=torch.float32, device=val.device)
+        work = torch.empty((geo.workspace_bytes,), dtype=torch.uint8, device=val.device)
+        base = work.data_ptr()
+        rc = lib.ell_gram_dense_launch(idx.data_ptr(), val.data_ptr(), x.data_ptr(), g.data_ptr(), v.data_ptr(), base,
+                                       base + geo.ws_offset, base + geo.ticket_offset, sb, w, n, geo.n_pad, geo.tiles,
+                                       geo.splits, geo.per, int(precision == "bf16"), geo.densify_smem,
+                                       torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the --ab dense kernel did not launch: CUDA error {rc}")
+        return g, v
+
+    result = {}
+    for label in ("shuffled", "sb512", "col2", "col4"):
+        kind, sb, w, n = DENSE_CHECKS[label]
+        idx, val, x = dense_bundle(kind, sb, w, n, 850, device)
+        for mode in ("fp32", "bf16"):
+            runs = {"old": lambda k: old(idx, val, x, n, mode),
+                    "new": lambda k: ell_gram_dense(idx, val, x, n=n, precision=mode)}
+            check(all(torch.equal(a, b) for a, b in zip(runs["old"](0), runs["new"](0))),
+                  f"--ab: the two dense kernels differ at {label} {mode}")
+            turns = _turns(runs, 10, ("old", "new", "new", "old"))
+            old_ms, new_ms = statistics.mean(turns["old"]), statistics.mean(turns["new"])
+            result[f"ell_gram_dense.{label}.{mode}"] = {"old_ms": turns["old"], "new_ms": turns["new"]}
+            log(f"[ab] ell_gram dense {mode} {label} (sb, w, n) = {(sb, w, n)}: earlier kernel {old_ms:.5f} ms, this one "
+                f"{new_ms:.5f} ms on the device ({old_ms / new_ms:.2f}×; turns old {turns['old'][0]:.5f}, new "
+                f"{turns['new'][0]:.5f}, new {turns['new'][1]:.5f}, old {turns['old'][1]:.5f}; bitwise equal)")
+    return result
+
+
 def check_gram(device, err: dict, grid, edge_shapes) -> tuple[float, int]:
-    """Phase 3 for ell_gram: each mode of the kernel against its plain
-    version and the dense oracle on random bundles of each (sb, w, n) of
-    ``grid`` (rows that repeat an id, and rows that do not), and on the
-    ``EDGE_KINDS`` at each shape of ``edge_shapes``; two launches on rows
-    with distinct ids must be bitwise equal. Keeps the worst error of each
-    mode in ``err``; returns the worst bf16 error on rows that repeat an id
-    and the number of bitwise checks."""
-    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    """Phase 3 for ell_gram's hash route (``ell_gram_hash``, called
+    directly: every shape holds the hash kernel, whichever route
+    ``gram_route`` gives it): each mode against its plain version and the
+    dense oracle on random bundles of each (sb, w, n) of ``grid`` (rows
+    that repeat an id, and rows that do not), and on the ``EDGE_KINDS`` at
+    each shape of ``edge_shapes``; two launches on rows with distinct ids
+    must be bitwise equal. Keeps the worst error of each mode in ``err``;
+    returns the worst bf16 error on rows that repeat an id and the number
+    of bitwise checks."""
+    from repro_torch.kernels.ell_gram import ell_gram_and_v_blocked
+    from repro_torch.kernels.ell_gram import ell_gram_hash as ell_gram_and_v
     from repro_torch.kernels.ref import ell_gram_and_v_ref
 
     gram16_dup_err = 0.0
@@ -702,6 +757,214 @@ def check_gram(device, err: dict, grid, edge_shapes) -> tuple[float, int]:
                 f"the plain version (tol {tol})" + ("" if repeats else ", a second launch bitwise equal"))
 
     return gram16_dup_err, bitwise
+
+
+# the dense route's phase-3 shapes (label: kind, sb, w, n): epsilon's
+# bundle as its rows lie (every id, in order), shuffled distinct ids, ids
+# drawn with repeats and a padded tail, the s-step corner's 512 rows, the
+# paper grid's column shards at p_c = 2 and 4, and a small ragged bundle
+DENSE_CHECKS = {"epsilon": ("ordered", 128, 2000, 2000), "shuffled": ("shuffled", 128, 2000, 2000),
+                "repeated": ("repeated", 128, 2000, 2000), "sb512": ("shuffled", 512, 2000, 2000),
+                "col2": ("shuffled", 128, 1000, 1000), "col4": ("shuffled", 128, 500, 500),
+                "small": ("shuffled", 72, 64, 64)}
+# the routes' crossover (phase 5): sb = 128, each width, n = ratio·w (at
+# w = 2,000 a densified row of n = 32,000 is about the most pass A holds)
+CROSSOVER_WIDTHS = {2000: (1, 2, 4, 8, 16), 500: (1, 2, 4, 8, 16, 32, 64), 256: (1, 2, 4, 8, 16), 128: (1, 2, 4, 8)}
+# a route wins a point where its device time is below this share of the
+# other's: the turns of one reading spread by < 1 % (NVIDIA H100 80GB HBM3)
+CROSSOVER_MARGIN = 0.95
+
+
+def crossover(wins: dict) -> tuple[int, int]:
+    """(DENSE_MIN_WIDTH, DENSE_RATIO) from {(w, ratio): dense won}: of the
+    rules "w ≥ floor and n ≤ ratio·w" (floor a measured width, ratio a
+    measured ratio) that send no point the dense route did not win to it,
+    the one that sends it the most points it won (ties: the lower floor,
+    then the higher ratio); (0, 0) if none sends it any."""
+    widths = sorted({w for w, _ in wins})
+    ratios = sorted({r for _, r in wins})
+    best, rule = 0, (0, 0)
+    for floor in widths:
+        for ratio in ratios:
+            sent = [won for (w, r), won in wins.items() if w >= floor and r <= ratio]
+            if all(sent) and len(sent) > best:
+                best, rule = len(sent), (floor, ratio)
+    return rule
+
+
+def dense_bundle(kind: str, sb: int, w: int, n: int, seed: int, device):
+    """Rows that cover their columns: "ordered" every id 0..n−1 in order
+    (epsilon's rows as ``make_dataset`` lays them out), "shuffled" w
+    distinct ids a row in random order, "repeated" ``random_bundle``'s
+    rows (an id twice in every row, a padded tail)."""
+    if kind == "repeated":
+        return random_bundle(sb, w, n, seed, device)
+    rng = np.random.default_rng(seed)
+    if kind == "ordered":
+        idx = np.tile(np.arange(w, dtype=np.int32), (sb, 1))
+    else:
+        idx = np.stack([rng.permutation(n)[:w] for _ in range(sb)]).astype(np.int32)
+    val = (rng.standard_normal((sb, w)) / math.sqrt(w)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    return (torch.from_numpy(idx).to(device), torch.from_numpy(val).to(device),
+            torch.from_numpy(x).to(device))
+
+
+def route_counts() -> dict:
+    """{"hash.fp32": n, ...}: the Gram wrapper's launches by route and mode."""
+    from repro_torch.kernels.ell_gram import ell_gram_and_v
+
+    return {f"{route}.{mode}": n for route, counts in ell_gram_and_v.route_launches.items()
+            for mode, n in counts.items()}
+
+
+def check_gram_dense(device, err: dict) -> int:
+    """Phase 3 for the dense route: at each of DENSE_CHECKS, in both modes,
+    the wrapper (which must take the dense route: its count moves, the
+    hash count does not) against both plain versions (the panel walk and
+    ``ell_gram_dense_plain``) at GV_TOL — repeated ids too, since the route
+    rounds as they do — and against the fp32 dense oracle (BF16_DUP_TOL in
+    bf16); on distinct-id rows a second launch bitwise equal. The small
+    bundle, whose width the rule keeps on the hash route, calls
+    ``ell_gram_dense`` directly (its count moves all the same). Keeps the
+    worst error of each mode under "ell_gram_dense.<mode>"; returns the
+    number of bitwise checks."""
+    from repro_torch.kernels.ell_gram import (
+        ell_gram_and_v, ell_gram_and_v_blocked, ell_gram_dense, ell_gram_dense_plain, gram_route,
+    )
+    from repro_torch.kernels.ref import ell_gram_and_v_ref
+
+    bitwise = 0
+    for case, (label, (kind, sb, w, n)) in enumerate(DENSE_CHECKS.items()):
+        routed = gram_route(sb, w, n) == "dense"
+        check(routed or label == "small", f"{label} {(sb, w, n)} does not take the dense route")
+        # the small bundle sits below DENSE_MIN_WIDTH: the route is called directly
+        gram = ell_gram_and_v if routed else ell_gram_dense
+        idx, val, x = dense_bundle(kind, sb, w, n, 700 + case, device)
+        og, ov = ell_gram_and_v_ref(idx, val, x, n)
+        for mode in ("fp32", "bf16"):
+            before = route_counts()
+            g, v = gram(idx, val, x, n=n, precision=mode)
+            sync()
+            moved = {k: c - before[k] for k, c in route_counts().items() if c != before[k]}
+            check(moved == {f"dense.{mode}": 1}, f"ell_gram {mode} {label}: launches by route moved by {moved}")
+            what = f"ell_gram dense {mode} {label} {(sb, w, n)}"
+            check(g.shape == (sb, sb) and v.shape == (sb,) and bool(torch.all(torch.triu(g) == 0)),
+                  f"{what}: shapes or triu(G) != 0")
+            pg, pv = ell_gram_and_v_blocked(idx, val, x, n=n, bk=512, precision=mode)
+            dg, dv = ell_gram_dense_plain(idx, val, x, n=n, precision=mode)
+            oracle_tol = GV_TOL if mode == "fp32" else BF16_DUP_TOL  # the oracle is fp32
+            worst = 0.0
+            for got, want, name, t in ((g, pg, "G~plain", GV_TOL), (v, pv, "v~plain", GV_TOL),
+                                       (g, dg, "G~dense plain", GV_TOL), (v, dv, "v~dense plain", GV_TOL),
+                                       (g, og, "G~oracle", oracle_tol), (v, ov, "v~oracle", oracle_tol)):
+                max_abs, max_rel, ok = errors(got, want, t)
+                check(ok and math.isfinite(max_abs), f"{what} {name}: max abs {max_abs}, max rel {max_rel} (tol {t})")
+                if "plain" in name:
+                    worst = max(worst, max_abs)
+            err[f"ell_gram_dense.{mode}"] = max(err.get(f"ell_gram_dense.{mode}", 0.0), worst)
+            if kind != "repeated":
+                g2, v2 = gram(idx, val, x, n=n, precision=mode)
+                sync()
+                check(torch.equal(g, g2) and torch.equal(v, v2), f"{what}: two launches differ")
+                bitwise += 1
+            log(f"[kernels] ell_gram    dense {mode} {label:9s} (sb, w, n) = {(sb, w, n)}"
+                + ("" if routed else " (called directly)") + f": max abs err {worst:.3g} against "
+                f"both plain versions (tol {GV_TOL})" + ("" if kind == "repeated" else ", a second launch bitwise equal"))
+    return bitwise
+
+
+def _turns(runs: dict, inner: int, order: tuple) -> dict:
+    """Device ms of each of ``runs`` (label: fn(k)), timed in the turns of
+    ``order`` in one process; {label: [ms of each turn]}."""
+    turns = {label: [] for label in runs}
+    for label in order:
+        turns[label].append(device_ms(runs[label], inner=inner))
+    return turns
+
+
+def time_gram_routes(device) -> dict:
+    """Phase 5 for the dense route: at each of DENSE_CHECKS but the repeated
+    and the ordered one (whose times are the shuffled one's), in both modes,
+    the wrapper (routed: device and eager ms), the dense route and the hash
+    route called directly, in turns (dense, hash, hash, dense) by CUDA-graph
+    device time, the library (densify + ``torch.matmul``, eager), the dense
+    plain version (eager) and the bound; then the crossover: at sb = 128
+    and each of CROSSOVER_WIDTHS, n = ratio·w, the two routes in turns on
+    the same rows, each first held against the panel walk. Returns
+    {"shapes": ..., "crossover": ..., "crossover_ratio": ...}."""
+    from repro_torch.kernels.ell_gram import (
+        DENSE_MIN_WIDTH, DENSE_RATIO, dense_geometry, ell_gram_and_v, ell_gram_and_v_blocked, ell_gram_dense,
+        ell_gram_dense_plain, ell_gram_hash, gram_route,
+    )
+    from repro_torch.kernels.ref import densify_bundle_ref
+    from repro_torch.launch.roofline import probe_bound
+
+    out = {"shapes": {}, "crossover": {}}
+    for label in ("shuffled", "sb512", "col2", "col4", "small"):
+        kind, sb, w, n = DENSE_CHECKS[label]
+        idx, val, x = dense_bundle(kind, sb, w, n, 800, device)
+        bound = probe_bound(idx, val)
+        geo = dense_geometry(sb, n)
+        row = {"sb": sb, "w": w, "n": n, "splits": geo.splits, "tiles": geo.tile_count,
+               "workspace_bytes": geo.workspace_bytes}
+        for mode in ("fp32", "bf16"):
+            wire = torch.float32 if mode == "fp32" else torch.bfloat16
+
+            def library(k):
+                dense = densify_bundle_ref(idx, val, n).to(wire)
+                return torch.tril(dense @ dense.T, diagonal=-1), dense @ x.to(wire)
+
+            runs = {"dense": lambda k: ell_gram_dense(idx, val, x, n=n, precision=mode),
+                    "hash": lambda k: ell_gram_hash(idx, val, x, n=n, precision=mode)}
+            turns = _turns(runs, 10, ("dense", "hash", "hash", "dense"))
+            lib = [eager_ms(library, inner=2) for _ in range(2)]
+            t = dict(ms=device_ms(lambda k: ell_gram_and_v(idx, val, x, n=n, precision=mode), inner=10),
+                     eager_ms=eager_ms(lambda k: ell_gram_and_v(idx, val, x, n=n, precision=mode), inner=10),
+                     dense_ms=statistics.mean(turns["dense"]), hash_ms=statistics.mean(turns["hash"]),
+                     turns=turns, library_ms=statistics.mean(lib), library_turns=lib,
+                     plain_ms=eager_ms(lambda k: ell_gram_dense_plain(idx, val, x, n=n, precision=mode),
+                                       inner=1, warmup=1),
+                     bound={"bytes": bound.memory_s * 1e3, "operations": bound.compute_s * 1e3})
+            by = max(t["bound"], key=t["bound"].get)
+            t.update(bound_ms=t["bound"][by], bound_by=by)
+            row[mode] = t
+            log(f"[times] ell_gram dense route {mode} {label:8s} (sb, w, n) = {(sb, w, n)}, {geo.tile_count} tiles × "
+                f"{geo.splits} splits: routed {t['ms']:.5f} ms on the device ({t['eager_ms']:.4f} ms a call from "
+                f"Python); in turns dense {t['dense_ms']:.5f}, hash {t['hash_ms']:.5f} ms ({t['hash_ms'] / t['dense_ms']:.2f}×); "
+                f"library {t['library_ms']:.4f} ms; dense plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.6f} ms by {by}")
+        out["shapes"][label] = row
+
+    wins = {}
+    for w, ratios in CROSSOVER_WIDTHS.items():
+        for ratio in ratios:
+            n = ratio * w
+            idx, val, x = dense_bundle("shuffled", 128, w, n, 900 + ratio, device)
+            row = {}
+            for mode in ("fp32", "bf16"):
+                pg, pv = ell_gram_and_v_blocked(idx, val, x, n=n, bk=512, precision=mode)
+                for route, fn in (("dense", ell_gram_dense), ("hash", ell_gram_hash)):
+                    g, v = fn(idx, val, x, n=n, precision=mode)
+                    ok = errors(g, pg, GV_TOL)[2] and errors(v, pv, GV_TOL)[2]
+                    check(ok, f"crossover {route} {mode} at (128, {w}, {n}): off the plain version")
+                runs = {"dense": lambda k: ell_gram_dense(idx, val, x, n=n, precision=mode),
+                        "hash": lambda k: ell_gram_hash(idx, val, x, n=n, precision=mode)}
+                turns = _turns(runs, 10, ("dense", "hash", "hash", "dense"))
+                row[mode] = {"dense_ms": statistics.mean(turns["dense"]), "hash_ms": statistics.mean(turns["hash"]),
+                             "turns": turns}
+            wins[(w, ratio)] = all(row[m]["dense_ms"] < CROSSOVER_MARGIN * row[m]["hash_ms"] for m in ("fp32", "bf16"))
+            out["crossover"][f"w{w}_n{n}"] = {"w": w, "n": n, "ratio": ratio, "dense_won": wins[(w, ratio)], **row}
+            log(f"[times] crossover sb = 128, w = {w}, n = {n} (n/w = {ratio}): "
+                + "; ".join(f"{m} dense {row[m]['dense_ms']:.5f} ms, hash {row[m]['hash_ms']:.5f} ms" for m in ("fp32", "bf16")))
+    # what DENSE_MIN_WIDTH and DENSE_RATIO are set from
+    floor, ratio = crossover(wins)
+    out.update(crossover_min_width=floor, crossover_ratio=ratio, dense_min_width=DENSE_MIN_WIDTH,
+               dense_ratio=DENSE_RATIO)
+    log(f"[times] crossover: the dense route won (by {1 - CROSSOVER_MARGIN:.0%} in both modes) from w = {floor} up to "
+        f"n/w = {ratio}; the rule has DENSE_MIN_WIDTH = {DENSE_MIN_WIDTH}, DENSE_RATIO = {DENSE_RATIO}")
+    check(all(wins[(w, r)] for w, r in wins if gram_route(128, w, w * r) == "dense"),
+          "the route rule sends a measured point to the dense route where the hash route was as fast")
+    return out
 
 
 def rel_dev(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -3074,6 +3337,8 @@ def zero_launch_counts() -> None:
     from repro_torch.kernels.ell_gram import ell_gram_and_v
 
     ell_gram_and_v.launches.update(fp32=0, bf16=0)
+    for counts in ell_gram_and_v.route_launches.values():
+        counts.update(fp32=0, bf16=0)
     sstep_inner.launches.update(fp32=0, bf16=0)
 
 
@@ -3476,18 +3741,41 @@ def _plain_gap(label: str, x, x_plain, controls: dict, limit_rel: float = X_TOL)
     return {"gap": gap, "x_max": x_max, "limit": limit, "controls": ctl}
 
 
+def _paper_route(name: str) -> str:
+    """The Gram route a paper dataset's bundles must take: epsilon's rows
+    cover their columns (the dense route), the others' are sparse."""
+    return "dense" if name.startswith("epsilon") else "hash"
+
+
+def _check_routes(label: str, got: dict, route: str, gram: dict) -> None:
+    """The launches by route of a run whose Gram launches were ``gram``
+    ({mode: n}): all on ``route``, none on the other."""
+    want = {f"{r}.{mode}": n * (r == route) for r in ("hash", "dense") for mode, n in gram.items()}
+    check(got == want, f"{label}: launches by route {got}, expected {want}")
+
+
 def _paper_engine(name: str, tp, smi: str) -> dict:
     """(a) the main path on ``tp`` at D = 0 fp32 and D = 2 bf16, each against
     the all-plain run, with (G, v) off by 1 % as the control (the other wire
-    precision is read beside it: bf16 must move x); the rounds' walls eager
-    and graphed; the kernels' times on one real bundle."""
+    precision is read beside it: bf16 must move x), every Gram launch on the
+    dataset's route (``_paper_route``); the rounds' walls eager and graphed;
+    on the dense route a traced eager round; the kernels' times on one real
+    bundle, the Gram's through the wrapper and through each route called
+    directly (the dense route where a densified row fits)."""
     from repro_torch.core import round_graph
     from repro_torch.core.engine import ParallelSGDSchedule, engine_loss, run_engine_chunk
     from repro_torch.core.teams import global_problem
-    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    from repro_torch.kernels.ell_gram import (
+        dense_fits, ell_gram_and_v, ell_gram_and_v_blocked, ell_gram_dense, ell_gram_dense_plain, ell_gram_hash,
+        gram_route,
+    )
     from repro_torch.kernels.ref import densify_bundle_ref
     from repro_torch.kernels.sstep_inner import sstep_inner, sstep_inner_ref
     from repro_torch.launch.roofline import probe_bound
+
+    route = _paper_route(name)
+    width = int(tp.indices.shape[-1])
+    check(gram_route(S * B, width, tp.n) == route, f"{name}: (sb, w, n) = {(S * B, width, tp.n)} does not take the {route} route")
 
     x0 = torch.zeros(tp.n, dtype=torch.float32, device=tp.values.device)
     gp = global_problem(tp)
@@ -3509,11 +3797,13 @@ def _paper_engine(name: str, tp, smi: str) -> dict:
         x = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sched)
         sync()
         got = launch_counts()
+        routes = route_counts()
         made = {k: round_graph.counts[k] - before[k] for k in before}
         want_graphs = _graphs_expected(cycle, PAPER_ROUNDS)
         want = {"ell_gram.fp32": expected * (mode == "fp32"), "ell_gram.bf16": expected * (mode == "bf16"),
                 "sstep_inner.fp32": expected, "sstep_inner.bf16": 0}
         check(got == want, f"{name} {label}: launches {got}, expected {want}")
+        _check_routes(f"{name} {label}", routes, route, {"fp32": want["ell_gram.fp32"], "bf16": want["ell_gram.bf16"]})
         check(made == want_graphs, f"{name} {label}: round graphs {made}, expected {want_graphs}")
         loss = float(engine_loss(gp, x))
         check(math.isfinite(loss) and loss < loss0, f"{name} {label}: the loss after {PAPER_ROUNDS} rounds is {loss} (x = 0: {loss0})")
@@ -3543,11 +3833,16 @@ def _paper_engine(name: str, tp, smi: str) -> dict:
                     sync()
                 samples.append((time.perf_counter() - t0) * 1e3 / PAPER_ROUNDS)
             walls[f"round_ms_{how}"] = statistics.median(samples)
-        row.update(walls, launches=got, launches_a_round=sum(got.values()) / PAPER_ROUNDS, graphs=made, loss=loss)
+        row.update(walls, launches=got, launches_by_route=routes, launches_a_round=sum(got.values()) / PAPER_ROUNDS,
+                   graphs=made, loss=loss)
         log(f"[paper] {name} {label}: {PAPER_ROUNDS} rounds, loss {loss0:.6f} → {loss:.6f} (log 2 = {math.log(2.0):.6f}); "
-            f"kernel launches {got} ({row['launches_a_round']:.0f} a round); round graphs {made}; wall a round "
+            f"kernel launches {got} ({row['launches_a_round']:.0f} a round; by route {routes}); round graphs {made}; wall a round "
             + ", ".join(f"{k[9:]} {v:.3f} ms" for k, v in walls.items()) + f" (median of 3 runs) — {smi}")
         out["runs"][label] = row
+    if route == "dense":  # where an eager round's device time goes, index_add_ among it
+        with eager_rounds():
+            out["profile_eager_round"] = profile_main_path(f"{name} fp32 D = 0, eager", lambda: run_engine_chunk(
+                tp, x0, 0, 2, base), 2)
     bf16_gap = float((xs[f"bf16_d{DELAY}"] - xs[f"bf16_d{DELAY}_other"]).abs().max())
     out["bf16_vs_fp32_d2"] = bf16_gap
     log(f"[paper] {name}: D = {DELAY} bf16 vs fp32 max |Δx| = {bf16_gap:.3g} (the rounding moved x)")
@@ -3565,15 +3860,25 @@ def _paper_engine(name: str, tp, smi: str) -> dict:
             dense = densify_bundle_ref(bi, bv, tp.n).to(wire)
             return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_in.to(wire)
 
-        g_k, v_k = ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode)
         g_p, v_p = ell_gram_and_v_blocked(bi, bv, x_in, n=tp.n, bk=PAPER_PLAIN_BK, precision=mode)
-        err = max(errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0])
-        check(all(errors(a, b, GV_TOL)[2] for a, b in ((g_k, g_p), (v_k, v_p))),
-              f"ell_gram {mode} on a {name} bundle: max abs error {err}")
+        # the wrapper (its route) and each route called directly, where it fits
+        direct = {"hash": ell_gram_hash} | ({"dense": ell_gram_dense} if dense_fits(tp.n) else {})
+        err = 0.0
+        for fn in (ell_gram_and_v, *direct.values()):
+            g_k, v_k = fn(bi, bv, x_in, n=tp.n, precision=mode)
+            err = max(err, errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0])
+            check(all(errors(a, b, GV_TOL)[2] for a, b in ((g_k, g_p), (v_k, v_p))),
+                  f"ell_gram {mode} ({getattr(fn, '__name__', fn)}) on a {name} bundle: max abs error {err}")
+        turns = _turns({r: (lambda k, fn=fn: fn(bi, bv, x_in, n=tp.n, precision=mode)) for r, fn in direct.items()},
+                       10, tuple(direct) + tuple(reversed(direct)))
         times[f"ell_gram.{mode}"] = dict(
-            ms=device_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode), inner=10),
+            route=route, ms=device_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode), inner=10),
+            eager_ms=eager_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=tp.n, precision=mode), inner=10),
+            **{f"{r}_ms": statistics.mean(t) for r, t in turns.items()}, route_turns=turns,
             plain_ms=eager_ms(lambda k: ell_gram_and_v_blocked(bi, bv, x_in, n=tp.n, bk=PAPER_PLAIN_BK, precision=mode),
                               inner=1, warmup=1, reps=5),
+            dense_plain_ms=(eager_ms(lambda k: ell_gram_dense_plain(bi, bv, x_in, n=tp.n, precision=mode), inner=1,
+                                     warmup=1, reps=5) if "dense" in direct else None),
             library_ms=eager_ms(lambda k: library(), inner=1, warmup=1, reps=5),
             bound={"bytes": gram_bound.memory_s * 1e3, "operations": gram_bound.compute_s * 1e3}, max_abs_err=err)
     g, v = ell_gram_and_v(bi, bv, x_in, n=tp.n)
@@ -3589,8 +3894,11 @@ def _paper_engine(name: str, tp, smi: str) -> dict:
         by = max(row["bound"], key=row["bound"].get)
         row.update(bound_ms=row["bound"][by], bound_by=by)
         library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        routes = ("" if "route" not in row else f" ({row['route']} route; called directly in turns: "
+                  + ", ".join(f"{r} {row[f'{r}_ms']:.5f} ms" for r in row["route_turns"])
+                  + ("" if "dense_ms" in row else ", dense: a densified row does not fit") + ")")
         log(f"[paper] {name} bundle (sb, w, n) = {(S * B, int(bi.shape[1]), tp.n)}: {key:16s} {row['ms']:.5f} ms on the "
-            f"device, plain {row['plain_ms']:.4f} ms, library {library}, bound {row['bound_ms']:.6f} ms by {by}; "
+            f"device{routes}, plain {row['plain_ms']:.4f} ms, library {library}, bound {row['bound_ms']:.6f} ms by {by}; "
             f"max abs err {row['max_abs_err']:.3g}")
     out["kernels"] = times
     out["bundle"] = {"sb": S * B, "w": int(bi.shape[1]), "n": tp.n}
@@ -3606,6 +3914,7 @@ def _paper_corners(name: str, tp, tp1) -> dict:
     on news20-sm it moved x by less than the limit)."""
     from repro_torch.core.engine import ParallelSGDSchedule, run_engine_chunk
 
+    route = _paper_route(name)
     r = PAPER_CORNER_ROUNDS
     corners = {
         "fedavg": (tp, ParallelSGDSchedule.fedavg(P_R, B, ETA, TAU, r)),
@@ -3619,16 +3928,18 @@ def _paper_corners(name: str, tp, tp1) -> dict:
         x = run_engine_chunk(problem, x0, 0, sched.rounds, sched)
         sync()
         got = launch_counts()
+        routes = route_counts()
         bundles = sched.rounds * sched.p_r * (sched.tau // sched.s)
         want = bundles if sched.s > 1 else 0  # s = 1: one SpMV and one SpMVᵀ a step, no Gram
         check(got == {"ell_gram.fp32": want, "ell_gram.bf16": 0, "sstep_inner.fp32": want, "sstep_inner.bf16": 0},
               f"{name} {corner}: launches {got}, expected {want} of each fp32 kernel")
+        _check_routes(f"{name} {corner}", routes, route, {"fp32": want, "bf16": 0})
         with plain_corrections():
             x_plain = run_engine_chunk(problem, x0, 0, sched.rounds, dataclasses.replace(sched, gram="blocked", bk=PAPER_PLAIN_BK))
         x_eta = run_engine_chunk(problem, x0, 0, sched.rounds, dataclasses.replace(sched, eta=sched.eta * 1.001))
         out[corner] = _plain_gap(f"{name} {corner} (p_r = {sched.p_r}, s = {sched.s}, b = {sched.b}, τ = {sched.tau}, "
                                  f"{sched.rounds} rounds)", x, x_plain, {"η off by 0.1 %": x_eta})
-        out[corner]["launches"] = got
+        out[corner].update(launches=got, launches_by_route=routes)
     return out
 
 
@@ -3677,6 +3988,8 @@ def _paper_front_door(dataset: str, device=None) -> dict:
         finally:
             engine.inner_corrections_loop = loop
         got = launch_counts()
+        routes = route_counts()
+        _check_routes(f"{dataset} {objective}", routes, _paper_route(dataset), {"fp32": PAPER_ROUNDS * bundles, "bf16": 0})
         made = {k: round_graph.counts[k] - before[k] for k in before}
         replayed = made["replays"]
         want_graphs = _graphs_expected(cycle, PAPER_ROUNDS)
@@ -3703,7 +4016,7 @@ def _paper_front_door(dataset: str, device=None) -> dict:
             x_skew = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, sess.spec.schedule)
         x_bf16 = run_engine_chunk(tp, x0, 0, PAPER_ROUNDS, dataclasses.replace(sess.spec.schedule, precision="bf16"))
         row = _plain_gap(f"{dataset} {objective} λ = {l2:g} (Session.step_rounds)", x, x_plain, {"(G, v) off by 1 %": x_skew})
-        row.update(other_wire_gap=float((x_bf16 - x_plain).abs().max()), launches=got, graphs=made,
+        row.update(other_wire_gap=float((x_bf16 - x_plain).abs().max()), launches=got, launches_by_route=routes, graphs=made,
                    loop_calls=calls[0], losses=losses, wall_s=wall, cycle=cycle)
         log(f"[paper] {dataset} {objective} λ = {l2:g}: the bf16 wire's run is {row['other_wire_gap']:.3g} from the "
             f"plain run's; losses {' '.join(f'{v:.6f}' for v in losses)}; "
@@ -3831,15 +4144,20 @@ def paper_mesh_spec(name: str, p_r: int, p_c: int, delay: int = 0, precision: st
 
 def _col_bundle_times(bi: torch.Tensor, bv: torch.Tensor, x_in: torch.Tensor, n_loc: int) -> dict:
     """``ell_gram`` on a column-shard bundle (ids < n_loc) and a weight
-    shard, on the current card: device and eager ms, the plain walk's (bk
-    PAPER_PLAIN_BK) and the library's (densify + ``torch.matmul``) ms and
-    the bound, in both modes."""
-    from repro_torch.kernels.ell_gram import ell_gram_and_v, ell_gram_and_v_blocked
+    shard, on the current card: device and eager ms of the wrapper (its
+    route) and of each route called directly (the dense one where a
+    densified row fits) in turns, the plain walk's (bk PAPER_PLAIN_BK) and
+    the library's (densify + ``torch.matmul``) ms and the bound, in both
+    modes."""
+    from repro_torch.kernels.ell_gram import (
+        dense_fits, ell_gram_and_v, ell_gram_and_v_blocked, ell_gram_dense, ell_gram_hash, gram_route,
+    )
     from repro_torch.kernels.ref import densify_bundle_ref
     from repro_torch.launch.roofline import probe_bound
 
     gram_bound = probe_bound(bi, bv)
-    out = {"sb": S * B, "w": int(bi.shape[1]), "n_loc": n_loc}
+    out = {"sb": S * B, "w": int(bi.shape[1]), "n_loc": n_loc, "route": gram_route(S * B, int(bi.shape[1]), n_loc)}
+    direct = {"hash": ell_gram_hash} | ({"dense": ell_gram_dense} if dense_fits(n_loc) else {})
     for mode in ("fp32", "bf16"):
         wire = torch.float32 if mode == "fp32" else torch.bfloat16
 
@@ -3847,16 +4165,20 @@ def _col_bundle_times(bi: torch.Tensor, bv: torch.Tensor, x_in: torch.Tensor, n_
             dense = densify_bundle_ref(bi, bv, n_loc).to(wire)
             return torch.tril(dense @ dense.T, diagonal=-1), dense @ x_in.to(wire)
 
-        g_k, v_k = ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode)
         g_p, v_p = ell_gram_and_v_blocked(bi, bv, x_in, n=n_loc, bk=PAPER_PLAIN_BK, precision=mode)
-        err = max(errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0])
+        outs = [fn(bi, bv, x_in, n=n_loc, precision=mode) for fn in (ell_gram_and_v, *direct.values())]
+        err = max(max(errors(g_k, g_p, GV_TOL)[0], errors(v_k, v_p, GV_TOL)[0]) for g_k, v_k in outs)
+        turns = _turns({r: (lambda k, fn=fn: fn(bi, bv, x_in, n=n_loc, precision=mode)) for r, fn in direct.items()},
+                       10, tuple(direct) + tuple(reversed(direct)))
         row = dict(ms=device_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode), inner=10),
+                   **{f"{r}_ms": statistics.mean(t) for r, t in turns.items()}, route_turns=turns,
                    eager_ms=eager_ms(lambda k: ell_gram_and_v(bi, bv, x_in, n=n_loc, precision=mode), inner=10),
                    plain_ms=eager_ms(lambda k: ell_gram_and_v_blocked(bi, bv, x_in, n=n_loc, bk=PAPER_PLAIN_BK,
                                                                       precision=mode), inner=1, warmup=1, reps=5),
                    library_ms=eager_ms(library, inner=1, warmup=1, reps=5),
                    bound={"bytes": gram_bound.memory_s * 1e3, "operations": gram_bound.compute_s * 1e3},
-                   max_abs_err=err, within_tol=all(errors(a, b, GV_TOL)[2] for a, b in ((g_k, g_p), (v_k, v_p))))
+                   max_abs_err=err, within_tol=all(errors(a, b, GV_TOL)[2] for g_k, v_k in outs
+                                                   for a, b in ((g_k, g_p), (v_k, v_p))))
         by = max(row["bound"], key=row["bound"].get)
         row.update(bound_ms=row["bound"][by], bound_by=by)
         out[f"ell_gram.{mode}"] = row
@@ -3908,7 +4230,7 @@ def paper_mesh_rank(rank: int, world: int, store: str, out: str, backend: str, d
                 launches = launch_counts()
                 x = sess.current_x()
                 prob = sess.bundle.prob2d
-                rec = {"launches": launches, "ledger": sess.ledger.to_dict(), "walls": walls,
+                rec = {"launches": launches, "launches_by_route": route_counts(), "ledger": sess.ledger.to_dict(), "walls": walls,
                        "losses": [float(v) for v in sess.losses], "x_sha256": hashlib.sha256(x.tobytes()).hexdigest(),
                        "block": list(prob.block), "block_shape": list(prob.indices.shape),
                        "rows_local": prob.rows_local, "width": prob.width, "n_loc": prob.n_loc,
@@ -4036,6 +4358,8 @@ def _paper_mesh_report(name: str, ranks: list, sims: dict, tmp: pathlib.Path, wh
             ok = (got == want if not timed else
                   all(got[k] >= v if v else got[k] == 0 for k, v in want.items()) and got["sstep_inner.fp32"] == expected)
             check(ok, f"{name} {label}, rank {r}: launches {got}, expected {want}" + (" (+ the probes')" if timed else ""))
+            _check_routes(f"{name} {label}, rank {r}", rec["launches_by_route"], _paper_route(name),
+                          {mode: got[f"ell_gram.{mode}"] for mode in ("fp32", "bf16")})
             led = CommLedger.from_dict(rec["ledger"])
             check(led.rates == sim_rates and led.rounds == ROUNDS,
                   f"{name} {label}, rank {r}: ledger {led.rates} vs simulated {sim_rates}")
@@ -4046,6 +4370,7 @@ def _paper_mesh_report(name: str, ranks: list, sims: dict, tmp: pathlib.Path, wh
         row = {"shape": [p_r, p_c], "delay": delay, "precision": precision, "partitioner": partitioner,
                "gap": gap, "x_max": x_max, "limit": limit, "controls": misses,
                "control_factor": min(misses.values()) / limit, "launches_per_rank": recs[0]["launches"],
+               "launches_by_route_per_rank": recs[0]["launches_by_route"],
                "bytes_per_round": want_bytes, "losses": recs[0]["losses"], "sim_losses": sim["losses"],
                "step_ms": step_ms, "rows_local": recs[0]["rows_local"], "width": recs[0]["width"],
                "n_loc": recs[0]["n_loc"], "build_s": [rec["build_s"] for rec in recs],
@@ -4083,8 +4408,10 @@ def _paper_mesh_report(name: str, ranks: list, sims: dict, tmp: pathlib.Path, wh
                 t = bt[f"ell_gram.{mode}"]
                 check(t["within_tol"], f"{name} {label}: ell_gram {mode} on rank 0's first bundle, max abs error "
                       f"{t['max_abs_err']}")
-                log(f"[pmesh] {name} {label} rank (0, 0)'s first bundle (sb, w, n_loc) = {(bt['sb'], bt['w'], bt['n_loc'])}: "
-                    f"ell_gram.{mode} {t['ms']:.5f} ms on the device ({t['eager_ms']:.4f} ms a call from Python), plain "
+                log(f"[pmesh] {name} {label} rank (0, 0)'s first bundle (sb, w, n_loc) = {(bt['sb'], bt['w'], bt['n_loc'])}, "
+                    f"{bt['route']} route: ell_gram.{mode} {t['ms']:.5f} ms on the device ({t['eager_ms']:.4f} ms a call from "
+                    "Python; called directly in turns " + ", ".join(f"{r} {t[f'{r}_ms']:.5f} ms" for r in t["route_turns"])
+                    + "), plain "
                     f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms by "
                     f"{t['bound_by']}; max abs err {t['max_abs_err']:.3g}")
         out["runs"][label] = row
@@ -4168,6 +4495,49 @@ def paper_mesh_phase(smi: str, datasets: tuple = PAPER_DATASETS, ranks_backend: 
     return out
 
 
+# the kernel instantiations ptxas reports for each source: the two modes
+# of each kernel (the dense route has two kernels, pass A and pass B)
+PTXAS_KERNELS = {"ell_gram": 2, "ell_gram_dense": 4, "sstep_inner": 2}
+
+
+def build_kernels() -> float:
+    """Phase 2: build every source (one ``nvcc`` each, together) and read
+    ptxas' report of every kernel instantiation: registers, and no spills.
+    Returns the build's seconds."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[build] {len(libs)} kernel sources with {_build.find_nvcc()} in {build_s:.1f} s → {_build.build_dir()}")
+    for name in libs:
+        report = _build.build_log(name)
+        kernels_seen = re.findall(r"Function properties for (\S+)", report)
+        spills = [tuple(map(int, m)) for m in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+        for line in report.splitlines():
+            if "spill" in line or "registers" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+        want = PTXAS_KERNELS[name]
+        check(len(kernels_seen) == len(spills) == want, f"ptxas reported {len(kernels_seen)} kernels of {name}, expected {want}")
+        check(all(s == (0, 0) for s in spills), f"a kernel of {name} spills registers: {spills}")
+    return build_s
+
+
+def gram_main(smi: str) -> None:
+    """``--gram``: the Gram kernel's two routes alone, after the build: the
+    dense route's phase-3 checks and its phase-5 times beside the hash
+    route and the library, and the crossover the route rule is set from."""
+    device = torch.device("cuda")
+    build_s = build_kernels()
+    err = {}
+    bitwise = check_gram_dense(device, err)
+    times = time_gram_routes(device)
+    print(smi, flush=True)
+    print(json.dumps({"gram": {"card": smi, "build_s": build_s, "max_abs_err": err, "bitwise_checks": bitwise,
+                               **times}}), flush=True)
+    device_line()
+
+
 def device_line() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4192,6 +4562,24 @@ def mesh_nccl_main(smi: str) -> None:
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"paper_mesh": paper_mesh}), flush=True)
     print(json.dumps({"model_mesh": model_mesh}), flush=True)
+    device_line()
+
+
+def paper_grid_main(smi: str) -> None:
+    """``--paper-grid [NAME,...]``: the paper's grid alone over NCCL, a card
+    a rank (needs four cards), on the named datasets (default
+    PAPER_DATASETS), after building the kernels."""
+    args = sys.argv[1:]
+    at = args.index("--paper-grid") + 1
+    names = tuple(args[at].split(",")) if at < len(args) and not args[at].startswith("--") else PAPER_DATASETS
+    check(torch.cuda.device_count() >= MESH_P * MESH_P,
+          f"--paper-grid needs {MESH_P * MESH_P} cards, found {torch.cuda.device_count()}")
+    build_kernels()
+    cards = smi.splitlines()
+    label = f"{len(cards)} × {cards[0]}" if len(set(cards)) == 1 else "; ".join(cards)
+    paper_mesh = paper_mesh_phase(label, datasets=names, ranks_backend="nccl")
+    print(smi, flush=True)
+    print(json.dumps({"paper_mesh": paper_mesh}), flush=True)
     device_line()
 
 
@@ -4253,6 +4641,12 @@ def main() -> None:
     if "--graph" in sys.argv[1:]:
         graph_main(smi)
         return
+    if "--gram" in sys.argv[1:]:
+        gram_main(smi)
+        return
+    if "--paper-grid" in sys.argv[1:]:
+        paper_grid_main(smi)
+        return
     if "--paper" in sys.argv[1:]:
         paper_main(smi)
         return
@@ -4281,20 +4675,7 @@ def main() -> None:
     from repro_torch.sparse.synthetic import make_dataset
 
     # ---- phase 2: build -------------------------------------------------
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    build_s = time.perf_counter() - t0
-    log(f"[build] {len(libs)} kernels with {_build.find_nvcc()} in {build_s:.1f} s → {_build.build_dir()}")
-    # ptxas' report of every kernel instantiation: registers, and no spills
-    for name in libs:
-        report = _build.build_log(name)
-        kernels_seen = re.findall(r"Function properties for (\S+)", report)
-        spills = [tuple(map(int, m)) for m in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
-        for line in report.splitlines():
-            if "spill" in line or "registers" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
-        check(len(kernels_seen) == len(spills) == 2, f"ptxas reported {len(kernels_seen)} kernels of {name}, expected 2")
-        check(all(s == (0, 0) for s in spills), f"a kernel of {name} spills registers: {spills}")
+    build_s = build_kernels()
 
     # ---- the language-model trainer: qwen2.5-3b at its published width ---
     # (first, on an empty card: its ~28 GiB peak does not share the card
@@ -4319,7 +4700,8 @@ def main() -> None:
     # ---- phase 3: each kernel against its plain version, on the card ----
     # worst max abs error against the plain version, by (kernel, mode); the
     # bf16 Gram on rows with repeated ids is kept apart (its own tolerance)
-    err = {"ell_gram.fp32": 0.0, "ell_gram.bf16": 0.0, "sstep_inner.fp32": 0.0, "sstep_inner.bf16": 0.0}
+    err = {"ell_gram.fp32": 0.0, "ell_gram.bf16": 0.0, "sstep_inner.fp32": 0.0, "sstep_inner.bf16": 0.0,
+           "ell_gram_dense.fp32": 0.0, "ell_gram_dense.bf16": 0.0}
     gram_grid = [(8, 1, 10), (64, 24, 1999), (128, 111, 47236), (512, 111, 47236), (128, 540, NEWS20_N),
                  (8, MAX_CHUNK + 1, 5000),  # one entry over a chunk: two tables a row
                  (32, 3 * MAX_CHUNK + 100, 50000),  # four chunks a row
@@ -4327,6 +4709,7 @@ def main() -> None:
                  (8, 13100, 3145728)]  # synthetic_uniform's width and columns
     edge_shapes = ((64, 111, 47236), (16, MAX_CHUNK + 88, 20000))  # one chunk a row, and two
     gram16_dup_err, bitwise = check_gram(device, err, gram_grid, edge_shapes)
+    dense_bitwise = check_gram_dense(device, err)
 
     # the corrections: s = 1 (no panel), a whole triangle in flight, an s·b
     # that is not a multiple of 4 (no TMA: the producer warp's loads), rings
@@ -4440,12 +4823,13 @@ def main() -> None:
 
     zero_counts()
     x_kernel, losses = run_parallel_sgd(tp, x0, sched)
-    launches = counts()
+    launches, routes = counts(), route_counts()
     sync()
     losses_host = [float(t) for t in losses]
     log(f"[main] losses by round: {' '.join(f'{t:.5f}' for t in losses_host)}")
     expect_launches("synchronous fp32", launches, {"ell_gram.fp32": expected, "ell_gram.bf16": 0,
                                                    "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
+    _check_routes("the synchronous fp32 path", routes, "hash", {"fp32": expected, "bf16": 0})
     check(x_kernel.shape == (tp.n,) and bool(torch.isfinite(x_kernel).all()), "final x is not finite (n,)")
     check(len(losses_host) == ROUNDS and all(math.isfinite(t) for t in losses_host), "losses are not finite")
     check(losses_host[0] < math.log(2.0), f"first loss {losses_host[0]} is not below ln 2")
@@ -4515,12 +4899,13 @@ def main() -> None:
     sched16 = dataclasses.replace(sched, delay=DELAY, precision="bf16")
     zero_counts()
     x16, losses16 = run_parallel_sgd(tp, x0, sched16)
-    launches16 = counts()
+    launches16, routes16 = counts(), route_counts()
     sync()
     l16 = [float(t) for t in losses16]
     log(f"[delay] D = {DELAY} bf16 losses by round: {' '.join(f'{t:.5f}' for t in l16)}")
     expect_launches(f"D = {DELAY} bf16", launches16, {"ell_gram.fp32": 0, "ell_gram.bf16": expected,
                                                       "sstep_inner.fp32": expected, "sstep_inner.bf16": 0})
+    _check_routes(f"the D = {DELAY} bf16 path", routes16, "hash", {"fp32": 0, "bf16": expected})
     check(x16.shape == (tp.n,) and bool(torch.isfinite(x16).all()), "D = 2 bf16: final x is not finite (n,)")
     check(all(math.isfinite(t) for t in l16) and l16[-1] < l16[0], "D = 2 bf16: the loss did not fall")
 
@@ -4709,6 +5094,7 @@ def main() -> None:
     one = torch.zeros(1, dtype=torch.float32, device=device)
     launch_floor_ms = device_ms(lambda k: one.add_(1.0), inner=20)
     log(f"[times] launch floor (a one-element add_ in a CUDA graph): {launch_floor_ms:.5f} ms on the device")
+    gram_routes = time_gram_routes(device)
 
     ab = None
     args = sys.argv[1:]
@@ -4716,6 +5102,8 @@ def main() -> None:
         old_source = ROOT / args[at + 1]
         if "sstep_inner_launch" in old_source.read_text():
             ab = {**(ab or {}), **ab_inner_times(old_source, inner_inputs, _build)}
+        elif "ell_gram_dense_launch" in old_source.read_text():
+            ab = {**(ab or {}), **ab_dense_times(old_source, device, _build)}
         else:
             ab = {**(ab or {}), **ab_times(old_source, shapes, ell_gram_and_v, _build)}
     sweep = sweep_inner(inner_inputs) if "--sweep" in args else None
@@ -4805,13 +5193,44 @@ def main() -> None:
                                 if key in row["engine"]["kernels"]}
         if key == "ell_gram.bf16":  # rows that repeat a column id, at BF16_DUP_TOL
             kernels[-1].update(max_abs_err_repeated_ids=gram16_dup_err, tol_repeated_ids=BF16_DUP_TOL)
+        if name == "ell_gram":  # the main path's launches by route
+            kernels[-1]["launches_by_route"] = {r: (routes if mode == "fp32" else routes16)[f"{r}.{mode}"]
+                                                for r in ("hash", "dense")}
+    # the dense route: its path is epsilon's through the engine (the paper
+    # phase's fp32 D = 0 run, and D = 2 bf16 for the bf16 mode), its times
+    # those of epsilon's first bundle (its plain version the route's own)
+    eps = paper["datasets"]["epsilon"]["engine"]
+    for mode, run in (("fp32", "fp32_d0"), ("bf16", f"bf16_d{DELAY}")):
+        row = eps["kernels"][f"ell_gram.{mode}"]
+        got = eps["runs"][run]["launches_by_route"]
+        check(got[f"dense.{mode}"] > 0, f"epsilon's {run} path never launched the dense route in {mode}")
+        kernels.append({
+            "name": "ell_gram_dense" if mode == "fp32" else "ell_gram_dense_bf16", "precision": mode, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ell_gram_dense.cu", "replaces": "src/repro/kernels/ell_gram.py:170",
+            "launches": got[f"dense.{mode}"], "path": f"epsilon {run} (paper phase)",
+            "launches_by_route": {r: got[f"{r}.{mode}"] for r in ("hash", "dense")},
+            "max_abs_err": max(err[f"ell_gram_dense.{mode}"], row["max_abs_err"]), "tol": GV_TOL,
+            "ms": row["ms"], "eager_ms": row["eager_ms"], "hash_ms": row["hash_ms"], "plain_ms": row["dense_plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launch_floor_ms": launch_floor_ms, "shape": eps["bundle"],
+            "launches_paper": {f"{name}.{label}": r["launches_by_route"][f"dense.{mode}"]
+                               for name, drow in paper["datasets"].items()
+                               for runs in (drow["engine"]["runs"], drow["corners"], drow.get("front_door", {}))
+                               for label, r in runs.items()},
+            "shapes": {label: {"sb": t["sb"], "w": t["w"], "n": t["n"], **{k: t[mode][k] for k in (
+                "ms", "eager_ms", "dense_ms", "hash_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+                       for label, t in gram_routes["shapes"].items()},
+        })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "round_ms": round_ms, "round_ms_delay2_bf16": round16_ms, "eta": ETA,
                       "build_s": build_s, "rmatvec_ms": rmat_ms, "path_gap": path_gap, "rerun_gap": rerun_gap,
                       "x_max": x_max, "identity_gap": gap, "skew_gap": skew_gap, "skew_identity_gap": skew_identity_gap,
                       "delay2_bf16_path_gap": gap16, "delay2_bf16_skew_gap": skew16, "delay2_bf16_vs_fp32": bf16_gap,
                       "delay2_vs_delay0": delay_gap, "ledger_capture_s": [capture_s, capture2_s],
-                      "ledger_delay2_bf16": led16.to_dict(), "ab": ab, "sweep": sweep}), flush=True)
+                      "ledger_delay2_bf16": led16.to_dict(), "ab": ab, "sweep": sweep,
+                      "gram_crossover": {k: gram_routes[k] for k in ("crossover", "crossover_min_width", "crossover_ratio",
+                                                                     "dense_min_width", "dense_ratio")},
+                      "dense_bitwise_checks": dense_bitwise}), flush=True)
     log(f"[done ] the run took {time.perf_counter() - started:.1f} s")
     device_line()
 

@@ -72,14 +72,23 @@ def round_cycle(rows_local: int, sb: int, bundles: int) -> int:
 _KERNELS = {"ell_gram": ell_gram_and_v, "sstep_inner": sstep_inner}
 
 
+def _counters() -> dict:
+    """{counter: {mode: launches}}: each wrapper's ``launches``, and the
+    Gram wrapper's count by route ("ell_gram.hash", "ell_gram.dense")."""
+    out = {name: fn.launches for name, fn in _KERNELS.items()}
+    out.update({f"ell_gram.{route}": counts for route, counts in ell_gram_and_v.route_launches.items()})
+    return out
+
+
 def _launch_counts() -> dict:
-    """{(kernel, mode): launches} of both kernel wrappers, read now."""
-    return {(name, mode): n for name, fn in _KERNELS.items() for mode, n in fn.launches.items()}
+    """{(counter, mode): launches} of the kernel wrappers, read now."""
+    return {(name, mode): n for name, counts in _counters().items() for mode, n in counts.items()}
 
 
 def _add_launches(delta: dict, sign: int = 1) -> None:
+    counters = _counters()
     for (name, mode), n in delta.items():
-        _KERNELS[name].launches[mode] += sign * n
+        counters[name][mode] += sign * n
 
 
 class CudaRoundGraph:

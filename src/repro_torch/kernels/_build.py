@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("ell_gram", "sstep_inner")
+KERNEL_SOURCES = ("ell_gram", "ell_gram_dense", "sstep_inner")
 
 
 def build_dir() -> pathlib.Path:

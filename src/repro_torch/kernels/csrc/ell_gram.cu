@@ -2,11 +2,14 @@
 // an s-bundle Y (sb rows, w padded entries a row, n columns), for sm_90a.
 //
 // Replaces: src/repro/kernels/ell_gram.py, `_ell_gram_kernel` (entry
-// `ell_gram_and_v`). That kernel walks ⌈n/bk⌉ column panels on a sequential
-// grid, expands each panel to a dense on-chip tile by comparing against an
-// iota (its target has no in-kernel scatter), accumulates G across grid
-// steps and masks after the last. None of that is carried over: the contract
-// is the (G, v) pair.
+// `ell_gram_and_v`), at the bundles `gram_route` in ell_gram.py sends to the
+// hash route: every sparse one (w < DENSE_MIN_WIDTH, or n > DENSE_RATIO·w).
+// Rows that cover their columns (epsilon's) go to the dense route,
+// ell_gram_dense.cu, a tensor-core tile product. That kernel walks ⌈n/bk⌉
+// column panels on a sequential grid, expands each panel to a dense on-chip
+// tile by comparing against an iota (its target has no in-kernel scatter),
+// accumulates G across grid steps and masks after the last. None of that is
+// carried over: the contract is the (G, v) pair.
 //
 // What bounds the function on this card: bytes. The inputs are sb·w·8 bytes
 // (114 KB at sb = 128, w = 111), G is sb²·4 bytes, and the multiply-adds that
@@ -54,7 +57,10 @@
 //     also writes the zeros of its mirror tile above the diagonal, and a
 //     diagonal block computes v for its rows from the compacted entries (a
 //     gather of x, one warp a row, shuffle-reduced, i-chunks in order).
-// fp32 FMA throughout: no tensor cores, no TF32 — the function is sparse.
+// fp32 FMA throughout: no tensor cores, no TF32 — the rows this route takes
+// are sparse. On dense rows every lookup hits and the Σ_{i>j} w lookups are a
+// product the tensor cores do (0.024 against 0.70 ms on an H100 at (128,
+// 2,000, 2,000), PERF.md): `gram_route` sends those bundles to ell_gram_dense.cu.
 //
 // The work is Σ_{i>j} nnz_i lookups (≈ 0.6·10⁶ at sb = 128, w = 111 on
 // rcv1) plus the nonzeros of a tile's j-rows inserted once in each block of

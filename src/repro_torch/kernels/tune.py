@@ -22,7 +22,10 @@ the run computes:
   ``ks``. Only (tile, ks) is kept: the chunk, the table size and the shared
   memory follow from the width of each bundle the build produces
   (``PanelProfile.width`` is the mean row length, not the built ELL
-  width).
+  width). A profile whose timing bundle ``gram_route`` sends to the dense
+  route (epsilon's) has no (tile, ks) to tune: the tuner times that route
+  once, records ``route: "dense"`` and no tile or ks, so a Session reads no
+  geometry from it.
 
 The timing bundle has the profile's shape and **distinct column ids in
 each row**, as every registered dataset has: a repeated id would send the
@@ -61,9 +64,11 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.kernels.ell_gram import (
     default_tile_ks,
+    dense_geometry,
     ell_gram_and_v,
     ell_gram_and_v_blocked,
     gram_geometry,
+    gram_route,
     supported_tile_ks,
 )
 from repro_torch.launch.roofline import panel_roofline, probe_bound
@@ -94,7 +99,7 @@ log = logging.getLogger("repro_torch.kernels.tune")
 # changes: the cache key folds this in, so every stale winner misses at
 # once. The port numbers its own kernels from 100, apart from the JAX
 # package's versions.
-KERNEL_VERSION = 100
+KERNEL_VERSION = 101
 
 BK_CANDIDATES = (128, 256, 512, 1024)
 BM_CANDIDATES = (None, 16, 32)
@@ -300,6 +305,18 @@ def _tune_card(profile, idx, val, x, n, repeats, pairs) -> list:
     return table
 
 
+def _time_dense(profile, idx, val, x, n, repeats) -> list:
+    """The dense route, the one launch a dense-routed profile has: its
+    device time beside the bound, no (tile, ks)."""
+    bound = probe_bound(idx, val)
+    rows, _ = idx.shape
+    geo = dense_geometry(rows, n, profile.precision)
+    t = _device_seconds(lambda: ell_gram_and_v(idx, val, x, n=n, precision=profile.precision), repeats)
+    return [{"route": "dense", "splits": geo.splits, "workspace_bytes": geo.workspace_bytes,
+             "measured_s": t, "attainable_s": bound.attainable_s, "dominant": bound.bound_by,
+             "skipped": "sub-roofline" if t < bound.attainable_s else None}]
+
+
 def tune_panel(
     profile: PanelProfile,
     *,
@@ -321,6 +338,8 @@ def tune_panel(
         bk, bm                                 — the winner (the card:
                                                  the static 512, None)
         tile, ks                               — the card's winner
+                                                 (hash route only)
+        route                                  — the card's route
         measured_s, attainable_s, efficiency   — winner's score + bound
         candidates                             — the full audited table
 
@@ -342,7 +361,10 @@ def tune_panel(
 
     on_card = run_on.type == "cuda"
     idx, val, x, n, width = _synthesize(profile, None if on_card else max_n, run_on)
-    if on_card:
+    route = gram_route(profile.rows, width, n) if on_card else None
+    if route == "dense":
+        table = _time_dense(profile, idx, val, x, n, max(repeats, 5))
+    elif on_card:
         table = _tune_card(profile, idx, val, x, n, max(repeats, 5), supported_tile_ks())
     else:
         table = _tune_cpu(profile, idx, val, x, n, width, repeats, bk_candidates, bm_candidates)
@@ -350,7 +372,7 @@ def tune_panel(
         "key": key, "kernel_version": KERNEL_VERSION, "device": device,
         "profile": profile.to_dict(), "bk": FALLBACK_BK, "bm": FALLBACK_BM,
         "measured_s": None, "attainable_s": None, "efficiency": None,
-        "candidates": table,
+        "route": route, "candidates": table,
     }
     feasible = [c for c in table if c.get("skipped") is None]
     if not feasible:  # every candidate filtered: static fallback, uncached
@@ -358,9 +380,9 @@ def tune_panel(
     best = min(feasible, key=lambda c: c["measured_s"])
     record.update(measured_s=best["measured_s"], attainable_s=best["attainable_s"],
                   efficiency=best["attainable_s"] / best["measured_s"])
-    if on_card:
+    if route == "hash":
         record.update(tile=best["tile"], ks=best["ks"])
-    else:
+    elif route is None:  # the CPU: the plain walk's (bk, bm)
         record.update(bk=best["bk"], bm=best["bm"])
     store_record(record, cache_dir)
     return record
